@@ -1,0 +1,46 @@
+"""The PyTorch port imports without jax: the GPU machine it runs on has none."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import yolov3_tensorflow_tpu_torch
+
+PKG_DIR = Path(yolov3_tensorflow_tpu_torch.__file__).parent
+
+
+def _modules():
+    names = ["yolov3_tensorflow_tpu_torch"]
+    for info in pkgutil.walk_packages([str(PKG_DIR)],
+                                      prefix="yolov3_tensorflow_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_with_jax_blocked():
+    names = _modules()
+    assert "yolov3_tensorflow_tpu_torch.ops.nms_cuda" in names
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m, mod in sys.modules.items()\n"
+            "             if (m.split('.')[0] == 'jax' and mod is not None)\n"
+            "             or m.startswith(('yolov3_tensorflow_tpu.models',\n"
+            "                              'yolov3_tensorflow_tpu.ops')))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          cwd=str(PKG_DIR.parent))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_no_source_imports_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
+    offenders = [str(p) for p in PKG_DIR.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders

@@ -1,0 +1,128 @@
+"""The port's packed serving path against the JAX package, on the CPU.
+
+- postprocess: the same packed head outputs (numpy, seeded) go through both
+  packages' `postprocess_packed`, the JAX one with exact top-k and its
+  Pallas shared NMS in interpret mode.
+- end to end: `build_detector(mode="packed")` of both packages on the same
+  spread-head weights (models.convert.spread_head) and images at 96^2, fp32
+  compute. Both round the packed outputs to bf16 (the JAX detector always
+  does), so a conv summed in another order can move a logit by one bf16
+  step; the detectors are held to detection identity (same label, IoU >=
+  0.9) for every detection scored at least 0.02 above the threshold.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
+from yolov3_tensorflow_tpu.ops import fast_postprocess as jfp
+from yolov3_tensorflow_tpu.ops.postprocess import \
+    build_detector as jax_build_detector
+from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
+                                                        spread_head)
+from yolov3_tensorflow_tpu_torch.ops import fast_postprocess as tfp
+from yolov3_tensorflow_tpu_torch.ops.postprocess import (build_detector,
+                                                         detections_to_numpy,
+                                                         pack_detections,
+                                                         unpack_detections)
+from yolov3_tensorflow_tpu_torch.testing import (match_detections,
+                                                 numpy_variables)
+
+CPU = torch.device("cpu")
+ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)
+C = 80
+SCORE_T = 0.3
+
+
+def _packed_outputs(b: int, seed: int):
+    row = tfp.head_row_width(C)
+    rng = np.random.default_rng(seed)
+    outs = []
+    for g in (2, 4, 8):
+        p = np.full((b, g, g, 3, row), -30.0, np.float32)
+        p[..., :C] = rng.uniform(0, 4, (b, g, g, 3, C))
+        p[..., C] = rng.uniform(-2, 2, (b, g, g, 3))
+        p[..., C + 1:C + 5] = rng.uniform(-1, 1, (b, g, g, 3, 4))
+        outs.append(p.reshape(b, g, g, 3 * row))
+    return outs
+
+
+@pytest.mark.parametrize("dtype,max_out", [("float32", 128),
+                                           ("float32", 32),
+                                           ("bfloat16", 128)])
+def test_postprocess_packed_matches_jax(dtype, max_out):
+    outs = _packed_outputs(2, seed=9)
+    kw = dict(max_out=max_out, box_topk=64, score_thresh=SCORE_T,
+              iou_thresh=0.45)
+    got = tfp.postprocess_packed(
+        [torch.from_numpy(o).to(getattr(torch, dtype)) for o in outs],
+        ANCHORS, C, (64, 64), **kw)
+    want = jfp.postprocess_packed(
+        [jnp.asarray(o, getattr(jnp, dtype)) for o in outs], ANCHORS, C,
+        (64, 64), approx_topk=False, use_pallas=True, pallas_interpret=True,
+        **kw)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    assert want["valid"].any()
+    for key in ("valid", "labels"):
+        np.testing.assert_array_equal(got[key].numpy(), want[key])
+    for key in ("boxes", "scores"):
+        np.testing.assert_allclose(got[key].numpy(), want[key], rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def spread_vars():
+    return spread_head(numpy_variables(C, seed=0), seed=0)
+
+
+def test_detector_end_to_end_matches_jax(spread_vars):
+    size = 96
+    kw = dict(max_out=128, box_topk=64, score_thresh=SCORE_T,
+              iou_thresh=0.45)
+    rng = np.random.default_rng(96)
+    img = rng.uniform(0, 1, (2, size, size, 3)).astype(np.float32)
+
+    det = build_detector(from_jax_variables(spread_vars, device=CPU), ANCHORS,
+                         C, (size, size), device=CPU,
+                         compute_dtype=torch.float32, **kw)
+    assert not det.training
+    got = det(torch.from_numpy(img))
+    jdet = jax_build_detector(spread_vars, ANCHORS, C, (size, size),
+                              mode="packed", compute_dtype=jnp.float32,
+                              use_pallas=False, **kw)
+    want = jax.device_get(jdet(jnp.asarray(img)))
+
+    assert got["boxes"].shape == (2, C * 128, 4)
+    assert torch.isfinite(got["boxes"]).all()
+    assert torch.isfinite(got["scores"]).all()
+
+    def jax_to_numpy(i):
+        v = want["valid"][i].astype(bool)
+        return want["boxes"][i][v], want["scores"][i][v], want["labels"][i][v]
+
+    g = [detections_to_numpy(got, i) for i in range(2)]
+    w = [jax_to_numpy(i) for i in range(2)]
+    min_score = SCORE_T + 0.02
+    n_w, found_w = match_detections(w, g, min_score)
+    n_g, found_g = match_detections(g, w, min_score)
+    assert n_w >= 20 and n_g >= 20, f"only {n_w} / {n_g} confident detections"
+    assert found_w == n_w, f"port misses {n_w - found_w} of {n_w} detections"
+    assert found_g == n_g, f"port adds {n_g - found_g} of {n_g} detections"
+
+    # pack/unpack is the detections_to_numpy contract in one buffer
+    packed = pack_detections(got)
+    for i in range(2):
+        for a, b in zip(unpack_detections(packed, i),
+                        detections_to_numpy(got, i)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_build_detector_defers_other_modes(spread_vars):
+    v = from_jax_variables(spread_vars, device=CPU)
+    for mode in ("exact", "prefilter", "split", "stem8", "int8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode=mode)
+    with pytest.raises(ValueError):
+        build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="bogus")

@@ -1,0 +1,307 @@
+"""YOLOv3: Darknet-53 backbone + FPN neck + 3 detection heads, inference.
+
+Counterpart of `yolov3_tensorflow_tpu/models/yolov3.py`. The layer plan is
+copied verbatim (a test holds it equal to the JAX plan), so parameter names
+and order are the same in both packages:
+
+    variables = {
+      "params": {"backbone": {"conv_0": {w, gamma, beta}, ...},
+                 "head": {"conv_0": {...}, ..., "conv_6": {w, b}, ...}},
+      "batch_stats": {"backbone": {"conv_0": {mean, var}, ...}, "head": ...},
+    }
+
+with conv weights in OIHW (`[cout, cin, k, k]`) instead of JAX's HWIO.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from yolov3_tensorflow_tpu_torch.models.layers import (conv_bias,
+                                                       conv_folded,
+                                                       neck_split_folded)
+
+Params = Dict[str, dict]
+
+# ---------------------------------------------------------------------------
+# Architecture plan (copied from the JAX package)
+# ---------------------------------------------------------------------------
+
+# Backbone plan ops: ("conv", cout, k, stride) | ("res_begin",) | ("res_end",)
+# | ("route",). Stage layout of 1-2-8-8-4 residual blocks with stride-2
+# transition convs, emitting 3 routes at strides 8/16/32.
+def _darknet53_plan() -> List[Tuple]:
+    plan: List[Tuple] = []
+
+    def c(cout: int, k: int, stride: int = 1) -> None:
+        plan.append(("conv", cout, k, stride))
+
+    def res(filters: int) -> None:
+        plan.append(("res_begin",))
+        c(filters, 1)
+        c(filters * 2, 3)
+        plan.append(("res_end",))
+
+    c(32, 3)
+    c(64, 3, 2)
+    res(32)
+    c(128, 3, 2)
+    for _ in range(2):
+        res(64)
+    c(256, 3, 2)
+    for _ in range(8):
+        res(128)
+    plan.append(("route",))          # route_1, stride 8
+    c(512, 3, 2)
+    for _ in range(8):
+        res(256)
+    plan.append(("route",))          # route_2, stride 16
+    c(1024, 3, 2)
+    for _ in range(4):
+        res(512)
+    plan.append(("route",))          # route_3, stride 32
+    return plan
+
+
+BACKBONE_PLAN = _darknet53_plan()
+
+# the three bias-carrying detection output convs (strides 32, 16, 8)
+DETECTION_CONVS = ("conv_6", "conv_14", "conv_22")
+
+
+# Head conv table, darknet serialization order. Entries:
+#   (name_idx, cout, k, has_bn)    detection convs have cout 3*(5+num_classes)
+def head_plan(num_classes: int) -> List[Tuple[int, int, int, bool]]:
+    out_c = 3 * (5 + num_classes)
+
+    def block(start: int, f: int) -> List[Tuple[int, int, int, bool]]:
+        ks = [1, 3, 1, 3, 1, 3]
+        cs = [f, 2 * f, f, 2 * f, f, 2 * f]
+        return [(start + i, cs[i], ks[i], True) for i in range(6)]
+
+    plan: List[Tuple[int, int, int, bool]] = []
+    plan += block(0, 512)
+    plan += [(6, out_c, 1, False)]       # detection output, stride 32
+    plan += [(7, 256, 1, True)]          # pre-upsample lateral conv
+    plan += block(8, 256)
+    plan += [(14, out_c, 1, False)]      # detection output, stride 16
+    plan += [(15, 128, 1, True)]         # pre-upsample lateral conv
+    plan += block(16, 128)
+    plan += [(22, out_c, 1, False)]      # detection output, stride 8
+    return plan
+
+
+def darknet_layer_order(num_classes: int) -> List[Tuple[str, str, bool]]:
+    """Ordered (scope, conv_name, has_bn) matching darknet .weights layout:
+    52 backbone convs then 23 head convs."""
+    order = []
+    idx = 0
+    for op in BACKBONE_PLAN:
+        if op[0] == "conv":
+            order.append(("backbone", f"conv_{idx}", True))
+            idx += 1
+    for name_idx, _, _, has_bn in head_plan(num_classes):
+        order.append(("head", f"conv_{name_idx}", has_bn))
+    return order
+
+
+def _head_input_channels(num_classes: int) -> Dict[int, int]:
+    """Input channel count for each head conv, from the FPN dataflow."""
+    cin: Dict[int, int] = {}
+    # block 1 on route_3 (1024 ch)
+    c = 1024
+    for i, (_, cout, _, _) in enumerate(head_plan(num_classes)[:6]):
+        cin[i] = c
+        c = cout
+    cin[6] = 1024        # after conv_5 (3x3, 1024)
+    cin[7] = 512         # inter1 = output of conv_4 (512)
+    # block 2 on concat(upsample(conv_7)=256, route_2=512) = 768
+    c = 768
+    for i in range(8, 14):
+        cin[i] = c
+        c = head_plan(num_classes)[i][1]
+    cin[14] = 512
+    cin[15] = 256        # inter2 = output of conv_12 (256)
+    # block 3 on concat(upsample(conv_15)=128, route_1=256) = 384
+    c = 384
+    for i in range(16, 22):
+        cin[i] = c
+        c = head_plan(num_classes)[i][1]
+    cin[22] = 256
+    return cin
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _glorot_uniform(generator: torch.Generator, k: int, cin: int, cout: int
+                    ) -> torch.Tensor:
+    """OIHW kernel from U(-l, l), l = sqrt(6 / (fan_in + fan_out)) with
+    fan = k*k*channels: the distribution of jax's glorot_uniform (the
+    draws differ)."""
+    limit = math.sqrt(6.0 / (k * k * cin + k * k * cout))
+    u = torch.rand((cout, cin, k, k), generator=generator,
+                   device=generator.device, dtype=torch.float32)
+    return (u * 2.0 - 1.0) * limit
+
+
+def init_yolov3(generator: torch.Generator, num_classes: int = 80, *,
+                device: torch.device) -> Dict[str, Params]:
+    """Initialize the full variable tree: glorot-uniform kernels, gamma=1,
+    beta=0, moving mean=0, moving var=1, zero detection biases. Draws come
+    from `generator` (on its own device) and land on `device`."""
+    params: Params = {"backbone": {}, "head": {}}
+    stats: Params = {"backbone": {}, "head": {}}
+
+    def conv_bn(k: int, cin: int, cout: int):
+        w = _glorot_uniform(generator, k, cin, cout).to(device)
+        ones = torch.ones(cout, device=device)
+        zeros = torch.zeros(cout, device=device)
+        return ({"w": w, "gamma": ones, "beta": zeros},
+                {"mean": zeros.clone(), "var": ones.clone()})
+
+    cin = 3
+    idx = 0
+    for op in BACKBONE_PLAN:
+        if op[0] != "conv":
+            continue
+        _, cout, k, _ = op
+        p, s = conv_bn(k, cin, cout)
+        params["backbone"][f"conv_{idx}"] = p
+        stats["backbone"][f"conv_{idx}"] = s
+        cin = cout
+        idx += 1
+
+    head_cin = _head_input_channels(num_classes)
+    for name_idx, cout, k, has_bn in head_plan(num_classes):
+        name = f"conv_{name_idx}"
+        cin = head_cin[name_idx]
+        if has_bn:
+            params["head"][name], stats["head"][name] = conv_bn(k, cin, cout)
+        else:
+            params["head"][name] = {
+                "w": _glorot_uniform(generator, k, cin, cout).to(device),
+                "b": torch.zeros(cout, device=device)}
+    return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _backbone_forward(conv_fn, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Walk BACKBONE_PLAN; `conv_fn(idx, x, stride)` applies conv idx.
+    Returns the 3 routes (strides 8, 16, 32)."""
+    routes: List[torch.Tensor] = []
+    shortcut = None
+    idx = 0
+    for op in BACKBONE_PLAN:
+        kind = op[0]
+        if kind == "conv":
+            x = conv_fn(idx, x, op[3])
+            idx += 1
+        elif kind == "res_begin":
+            shortcut = x
+        elif kind == "res_end":
+            x = x + shortcut
+        elif kind == "route":
+            routes.append(x)
+    return tuple(routes)
+
+
+def _head_forward(conv_fn, out_fn, routes: Sequence[torch.Tensor], neck_fn
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FPN neck + 3 heads. `conv_fn(idx, x)` is a folded BN conv, `out_fn(idx,
+    x)` a detection conv, and `neck_fn(lat_idx, first_idx, inter, route)`
+    returns the output of head conv `first_idx` at each junction (see
+    layers.neck_split_folded)."""
+    route_1, route_2, route_3 = routes
+
+    x = route_3
+    for i in range(5):
+        x = conv_fn(i, x)
+    inter1 = x
+    x = conv_fn(5, x)
+    fmap_1 = out_fn(6, x)                       # stride 32
+
+    x = neck_fn(7, 8, inter1, route_2)
+    for i in range(9, 13):
+        x = conv_fn(i, x)
+    inter2 = x
+    x = conv_fn(13, x)
+    fmap_2 = out_fn(14, x)                      # stride 16
+
+    x = neck_fn(15, 16, inter2, route_1)
+    for i in range(17, 21):
+        x = conv_fn(i, x)
+    x = conv_fn(21, x)
+    fmap_3 = out_fn(22, x)                      # stride 8
+    return fmap_1, fmap_2, fmap_3
+
+
+def fold_batch_norm(variables: Dict[str, Params],
+                    dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Fold BN statistics into conv kernels for inference.
+
+    w' = w * gamma / sqrt(var + eps);  b' = beta - mean * gamma / sqrt(var+eps)
+    Detection convs keep (w, b), with w cast to `dtype` and b in fp32.
+    """
+    eps = 1e-5
+    params, stats = variables["params"], variables["batch_stats"]
+    folded: Params = {}
+    for scope in params:
+        folded[scope] = {}
+        for name, p in params[scope].items():
+            if "gamma" in p:
+                s = stats[scope][name]
+                scale = p["gamma"] / torch.sqrt(s["var"] + eps)
+                folded[scope][name] = {
+                    "w": (p["w"] * scale.view(-1, 1, 1, 1)).to(dtype),
+                    "b": (p["beta"] - s["mean"] * scale).float(),
+                }
+            else:
+                folded[scope][name] = {"w": p["w"].to(dtype),
+                                       "b": p["b"].float()}
+    return folded
+
+
+def folded_body(folded: Params, images: torch.Tensor, out_fn, *,
+                compute_dtype: torch.dtype) -> List[torch.Tensor]:
+    """Folded backbone + neck + head convs, with the detection convs applied
+    by `out_fn(i, x)` (i in 6, 14, 22) and every FPN junction in the split
+    form. images: [N, H, W, 3] float (NHWC). Returns the 3 head outputs,
+    strides (32, 16, 8), as NHWC views of channels_last tensors."""
+
+    def bn_conv(scope: str, idx: int, x: torch.Tensor, stride: int = 1):
+        return conv_folded(x, folded[scope][f"conv_{idx}"], stride=stride,
+                           compute_dtype=compute_dtype)
+
+    def neck_fn(lat_idx, first_idx, inter, route):
+        return neck_split_folded(inter, route, folded["head"][f"conv_{lat_idx}"],
+                                 folded["head"][f"conv_{first_idx}"],
+                                 compute_dtype=compute_dtype)
+
+    x = images.permute(0, 3, 1, 2).to(compute_dtype)   # NCHW, channels_last
+    routes = _backbone_forward(lambda i, x, s: bn_conv("backbone", i, x, s), x)
+    fmaps = _head_forward(lambda i, x: bn_conv("head", i, x), out_fn, routes,
+                          neck_fn)
+    return [f.permute(0, 2, 3, 1) for f in fmaps]
+
+
+def yolov3_forward_folded(folded: Params, images: torch.Tensor, *,
+                          compute_dtype: torch.dtype = torch.bfloat16
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inference forward with BN pre-folded (see `fold_batch_norm`) and the
+    split-neck junctions. images: [N, H, W, 3], H and W divisible by 32.
+    Returns (fmap_1, fmap_2, fmap_3), each [N, H/s, W/s, 3*(5+C)] fp32,
+    s in (32, 16, 8)."""
+    fmaps = folded_body(
+        folded, images,
+        lambda i, x: conv_bias(x, folded["head"][f"conv_{i}"],
+                               compute_dtype=compute_dtype),
+        compute_dtype=compute_dtype)
+    return tuple(fmaps)

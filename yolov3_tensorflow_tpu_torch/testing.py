@@ -1,0 +1,200 @@
+"""Seeded inputs shared by the tests and chip_smoke.py.
+
+`nms_cases` is the one case list used by the CPU tests (plain version
+against the JAX kernel and the numpy oracle) and by chip_smoke.py (CUDA
+kernel against the plain version on the card). `numpy_variables` makes a
+weight tree in the JAX package's layout, and `match_detections` is the
+detection-identity check both use. Everything is made with numpy from a
+seed, so both packages and both devices see the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple
+
+import numpy as np
+
+from yolov3_tensorflow_tpu_torch.models.yolov3 import (BACKBONE_PLAN,
+                                                       _head_input_channels,
+                                                       head_plan)
+
+IOU_T = 0.45
+SCORE_T = 0.3
+
+
+def numpy_variables(num_classes: int, seed: int = 0) -> Dict[str, dict]:
+    """A variable tree in the JAX package's layout (HWIO kernels, numpy
+    fp32 leaves): glorot-uniform kernels and non-trivial BN statistics
+    (gamma and var in [0.8, 1.2], beta and mean ~ N(0, 0.05)), so that BN
+    folding does real work."""
+    rng = np.random.default_rng(seed)
+    params = {"backbone": {}, "head": {}}
+    stats = {"backbone": {}, "head": {}}
+
+    def conv(scope, name, k, cin, cout, has_bn):
+        lim = np.sqrt(6.0 / (k * k * (cin + cout)))
+        w = rng.uniform(-lim, lim, (k, k, cin, cout)).astype(np.float32)
+        if not has_bn:
+            params[scope][name] = {"w": w, "b": np.zeros(cout, np.float32)}
+            return
+        u = lambda: rng.uniform(0.8, 1.2, cout).astype(np.float32)  # noqa: E731
+        n = lambda: rng.normal(0.0, 0.05, cout).astype(np.float32)  # noqa: E731
+        params[scope][name] = {"w": w, "gamma": u(), "beta": n()}
+        stats[scope][name] = {"mean": n(), "var": u()}
+
+    cin, idx = 3, 0
+    for op in BACKBONE_PLAN:
+        if op[0] == "conv":
+            conv("backbone", f"conv_{idx}", op[2], cin, op[1], True)
+            cin, idx = op[1], idx + 1
+    head_cin = _head_input_channels(num_classes)
+    for i, cout, k, has_bn in head_plan(num_classes):
+        conv("head", f"conv_{i}", k, head_cin[i], cout, has_bn)
+    return {"params": params, "batch_stats": stats}
+
+
+class NmsCase(NamedTuple):
+    name: str
+    boxes: np.ndarray          # [B, K, 4] float32 xyxy
+    scores: np.ndarray         # [B, K, C] float32
+    score_thresh: float
+    iou_thresh: float
+
+
+def _boxes(rng: np.random.Generator, b: int, k: int, span: float = 200.0
+           ) -> np.ndarray:
+    x0 = rng.uniform(0, span, (b, k))
+    y0 = rng.uniform(0, span, (b, k))
+    w = rng.uniform(5, 80, (b, k))
+    h = rng.uniform(5, 80, (b, k))
+    return np.stack([x0, y0, x0 + w, y0 + h], -1).astype(np.float32)
+
+
+def _scores(rng: np.random.Generator, b: int, k: int, c: int) -> np.ndarray:
+    return (rng.uniform(0, 1, (b, k, c)) ** 2).astype(np.float32)
+
+
+def iou_f32(a: np.ndarray, b: np.ndarray) -> np.float32:
+    """IoU of two xyxy boxes in float32, in the kernel's operation order."""
+    f = np.float32
+    iw = max(min(a[2], b[2]) - max(a[0], b[0]), f(0))
+    ih = max(min(a[3], b[3]) - max(a[1], b[1]), f(0))
+    inter = f(iw * ih)
+    area_a = f((a[2] - a[0]) * (a[3] - a[1]))
+    area_b = f((b[2] - b[0]) * (b[3] - b[1]))
+    return f(inter / f(f(f(area_a + area_b) - inter) + f(1e-10)))
+
+
+def threshold_pairs(t: float, n: int, rng: np.random.Generator
+                    ) -> List[np.ndarray]:
+    """n box triples whose float32 IoUs straddle t within two float32 ulps
+    of t: in each [3, 4] array box 0 is the anchor, box 1 has IoU > t with
+    it and box 2 (its x shifted one float32 step further) IoU <= t.
+    Triple p sits at y = 100 * (p % 21), so the 21 triples of one 64-box
+    image never overlap each other."""
+    t32 = np.float32(t)
+    tol = 2 * np.spacing(t32)
+    out = []
+    while len(out) < n:
+        y = np.float32(100 * (len(out) % 21))
+        w, h = rng.uniform(30, 60, 2).astype(np.float32)
+        a = np.array([0, y, w, y + h], np.float32)
+        # shifted by d along x, IoU = (w - d) / (w + d) = t
+        x0 = np.float32(w * (1 - t) / (1 + t))
+        xs = [x0]
+        for _ in range(64):
+            xs.insert(0, np.nextafter(xs[0], np.float32(-np.inf)))
+            xs.append(np.nextafter(xs[-1], np.float32(np.inf)))
+        shifted = [np.array([x, y, x + w, y + h], np.float32) for x in xs]
+        ious = [iou_f32(a, s) for s in shifted]
+        for i in range(len(ious) - 1):
+            if (ious[i] > t32 >= ious[i + 1] and ious[i] - t32 <= tol
+                    and t32 - ious[i + 1] <= tol):
+                out.append(np.stack([a, shifted[i], shifted[i + 1]]))
+                break
+    return out
+
+
+def bench_case(seed: int = 0) -> NmsCase:
+    """Random candidates at the serving detector's NMS shape at the bench
+    batch: B=128 images, K=64 candidates, C=80 classes."""
+    rng = np.random.default_rng(seed)
+    return NmsCase("bench_b128_k64_c80", _boxes(rng, 128, 64),
+                   _scores(rng, 128, 64, 80), SCORE_T, IOU_T)
+
+
+def nms_cases(batch: int, seed: int = 0) -> List[NmsCase]:
+    """The kernel's case list at `batch` images per case (see module doc):
+    random sets at every (K, C) in {8, 64, 256} x {6, 20, 80} and at
+    (200, 20) and (1024, 6), duplicate
+    scores, duplicate and zero-area boxes, all-invalid classes and images,
+    and box pairs whose IoU lies within two float32 ulps of t."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for k in (8, 64, 256):
+        for c in (6, 20, 80):
+            span = 60.0 if k == 8 else 200.0
+            cases.append(NmsCase(f"random_k{k}_c{c}",
+                                 _boxes(rng, batch, k, span),
+                                 _scores(rng, batch, k, c), SCORE_T, IOU_T))
+
+    # K = 200 leaves the last 32-candidate word of a row ragged; K = 1024,
+    # the kernel's largest, needs more than 48 KB of shared memory
+    for k, c in ((200, 20), (1024, 6)):
+        cases.append(NmsCase(f"random_k{k}_c{c}", _boxes(rng, batch, k, 400.0),
+                             _scores(rng, batch, k, c), SCORE_T, IOU_T))
+
+    k, c = 64, 20
+    s = np.round(_scores(rng, batch, k, c) * 4) / 4          # 5 score levels
+    boxes = _boxes(rng, batch, k, 120.0)
+    boxes[:, 32:48] = boxes[:, 0:16]                         # duplicate boxes
+    cases.append(NmsCase("ties", boxes, s.astype(np.float32), 0.25, IOU_T))
+
+    boxes = _boxes(rng, batch, k, 100.0)
+    boxes[:, ::3, 2] = boxes[:, ::3, 0]                      # zero width
+    boxes[:, 1::5, 3] = boxes[:, 1::5, 1]                    # zero height
+    boxes[:, 40:44] = boxes[:, 0:1]                          # same degenerate box
+    cases.append(NmsCase("zero_area", boxes, _scores(rng, batch, k, c),
+                         SCORE_T, IOU_T))
+
+    s = _scores(rng, batch, k, c)
+    s[:, :, ::2] *= 0.25                                     # even classes < 0.25
+    s[0] = 0.1                                               # image 0: nothing valid
+    cases.append(NmsCase("invalid_classes", _boxes(rng, batch, k),
+                         s.astype(np.float32), SCORE_T, IOU_T))
+
+    pairs = threshold_pairs(IOU_T, batch * 21, rng)          # 63 boxes / image
+    boxes = np.zeros((batch, k, 4), np.float32)
+    s = np.zeros((batch, k, c), np.float32)
+    for i in range(batch):
+        for p in range(21):
+            boxes[i, 3 * p:3 * p + 3] = pairs[i * 21 + p]
+            s[i, 3 * p] = 0.9          # anchor ranks first in every class
+            s[i, 3 * p + 1] = 0.8      # each shifted box is judged against it
+            s[i, 3 * p + 2] = 0.7      # (and box 1 against box 2)
+    s[:, :, 1::2] = rng.uniform(0, 1, (batch, k, c // 2))
+    cases.append(NmsCase("iou_at_threshold", boxes, s, SCORE_T, IOU_T))
+    return cases
+
+
+def match_detections(src, dst, min_score: float):
+    """Detection identity, one way. src and dst are per-image lists of
+    (boxes [N, 4], scores [N], labels [N]) host arrays. Returns (n, found):
+    the number of src detections scored >= min_score, and how many of them
+    dst has with the same label and IoU >= 0.9."""
+    n = found = 0
+    for (sb, ss, sl), (db, _, dl) in zip(src, dst):
+        for box, score, label in zip(sb, ss, sl):
+            if score < min_score:
+                continue
+            n += 1
+            same = db[dl == label]
+            x0 = np.maximum(box[0], same[:, 0])
+            y0 = np.maximum(box[1], same[:, 1])
+            x1 = np.minimum(box[2], same[:, 2])
+            y1 = np.minimum(box[3], same[:, 3])
+            inter = np.clip(x1 - x0, 0, None) * np.clip(y1 - y0, 0, None)
+            area = (box[2] - box[0]) * (box[3] - box[1])
+            areas = (same[:, 2] - same[:, 0]) * (same[:, 3] - same[:, 1])
+            found += bool((inter / (area + areas - inter) >= 0.9).any())
+    return n, found

@@ -1,0 +1,66 @@
+"""Build the package's CUDA kernels at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` exports a plain C launcher and is compiled by `nvcc`
+for Hopper (`sm_90a`) into `build/torch_kernels/lib<name>_<hash>.so` at the
+repository root, where <hash> covers the source and the flags: a changed
+source builds anew, an unchanged one loads the existing library. No PyTorch
+headers are compiled, so a build takes seconds.
+
+`--fmad=false` keeps nvcc from contracting a multiply and an add into one
+FMA: the kernels' float arithmetic must round exactly as their plain
+PyTorch versions do (IoU>t decisions near t must not flip).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or CUDA_HOME set)")
+
+
+def build_kernel(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its library exists. The compiler's
+    output (register and shared-memory use, from -Xptxas=-v) is kept in
+    `<library>.log`. Returns the library's path."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, out)      # atomic: a concurrent build never sees half
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernel(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu's library, once per
+    process."""
+    return ctypes.CDLL(str(build_kernel(name)))
