@@ -9,27 +9,53 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. checks: a CUDA device is present; prints the card's name and power limit
    (nvidia-smi) and the toolchain.
-2. build: compiles the shared-candidate NMS kernel (csrc/nms_shared.cu) from
-   the sources in this checkout.
-3. kernel against its plain version: keep masks must be equal bit for bit
-   on the case list of yolov3_tensorflow_tpu_torch.testing (random sets at
-   K in {8, 64, 256} x C in {6, 20, 80}, K=200 and K=1024, ties, zero-area
-   boxes, all-invalid classes, IoU within 2 ulps of t) and the bench shape
-   B=128, K=64, C=80.
-4. main path: build_detector(mode="packed") at COCO-80, 416x416, bf16, with
-   the serving config (max_out 128, box_topk 64, score 0.3, iou 0.45) on
-   seeded random weights plus the spread head, answers 3 requests at batch 8
-   and 2 at batch 128. Outputs must be finite and of the right shape, every
-   image must have detections, the NMS kernel must have launched once per
-   request, and on the last request's candidates the kernel's keep masks
-   must equal the plain version's. Then the fp32 detector on the GPU (TF32
-   off) must find the same detections as the fp32 detector on the CPU
-   (plain NMS) on 2 images: same label, IoU >= 0.9, for every detection
-   scored at least 0.02 above the threshold.
-5. timings (CUDA events, after warm-up): img/s at batch 8 and 128, the
-   stages at batch 128, and the kernel against its plain version at
-   B=128, K=64, C=80 on the main path's candidates.
-6. prints the kernel record and the device record as JSON; the last line is
+2. build: compiles both NMS kernels (csrc/nms_shared.cu and csrc/nms.cu)
+   from the sources in this checkout, one nvcc each, started together;
+   prints the build time and ptxas's register and spill lines.
+3. kernels against their plain versions, bit for bit: the shared-candidate
+   kernel on the case list of yolov3_tensorflow_tpu_torch.testing.nms_cases
+   (random sets at K in {8, 64, 256} x C in {6, 20, 80}, K=200 and K=1024,
+   ties, zero-area boxes, all-invalid classes, IoU within 2 ulps of t) and
+   the bench shape B=128, K=64, C=80; the per-group kernel on
+   testing.per_class_cases (dense random sets at K in {64, 200, 256, 1024}
+   with random validity and an all-invalid group, the three-box chain, IoU
+   within 2 ulps of t).
+4. packed path: build_detector(mode="packed") at COCO-80, 416x416, bf16,
+   with the serving config (max_out 128, box_topk 64, score 0.3, iou 0.45)
+   on seeded random weights plus the spread head, answers 3 requests at
+   batch 8 and 2 at batch 128. Outputs must be finite and of the right
+   shape, every image must have detections, the shared-candidate kernel
+   must have launched once per request, and on the last request's
+   candidates its keep masks must equal the plain version's. Then the fp32
+   detector on the GPU (TF32 off) must find the same detections as the
+   fp32 detector on the CPU (plain NMS) on 2 images: same label, IoU >=
+   0.9, for every detection scored at least 0.02 above the threshold.
+5. weights: the same seeded tree goes out through save_darknet_weights to
+   a darknet .weights file and back through load_darknet_weights into a
+   fresh tree; every tensor must come back equal.
+6. exact path: build_detector(mode="exact") from the loaded tree at COCO-80,
+   416x416, bf16, with the eval config (max_out 150, pre_topk 1024, score
+   0.01, iou 0.45), answers 3 requests at batch 8. Outputs finite and
+   [8, 80*150, ...], detections in every image, the per-group kernel
+   launched once per request, and on the exact path's own candidates
+   (G = 8*80 = 640 groups, K = 1024) its keep masks must equal the plain
+   version's. Then at the demo config (max_out 200, pre_topk 256, score
+   0.3, iou 0.45) the fp32 exact detector on the GPU and on the CPU must
+   find the same detections on 2 images, both ways.
+7. prefilter path: build_detector(mode="prefilter") at the demo config,
+   bf16, answers 1 request at batch 8 with one shared-candidate kernel
+   launch. Then, in fp32, on every image where no more than box_topk boxes
+   pass the score threshold (the prefilter's exactness condition) it must
+   find the same detections as the exact mode, both ways; the threshold is
+   the lowest of 0.3, 0.4, ..., 0.9 at which at least one image meets the
+   condition. (In bf16 the logits tie often, and the two modes order equal
+   scores differently: by candidate rank and by anchor index.)
+8. timings (CUDA events, after warm-up): img/s of the packed detector at
+   batch 8 and 128 and its stages at batch 128; ms per batch of the exact
+   detector at batch 8 in both configs and its stages at the eval config;
+   each kernel against its plain version on its path's own candidates
+   (B=128, K=64, C=80; G=640, K=1024), timed twice in turns.
+9. prints the kernel record and the device record as JSON; the last line is
    {"ok": true, "device": {...}}.
 """
 
@@ -38,6 +64,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,8 +76,16 @@ C = 80
 SIZE = 416
 SERVING = dict(max_out=128, box_topk=64, score_thresh=0.3, iou_thresh=0.45)
 REQUESTS = (8, 8, 8, 128, 128)
-KERNEL_SOURCE = "yolov3_tensorflow_tpu_torch/csrc/nms_shared.cu"
-KERNEL_REPLACES = "yolov3_tensorflow_tpu/ops/nms_pallas.py:115"
+EVAL = dict(max_out=150, pre_topk=1024, score_thresh=0.01, iou_thresh=0.45)
+DEMO = dict(max_out=200, pre_topk=256, score_thresh=0.3, iou_thresh=0.45)
+EXACT_REQUESTS = 3                     # batch 8 each
+BOX_TOPK = 256                         # prefilter candidates per image
+KERNELS = {
+    "nms_shared": ("yolov3_tensorflow_tpu_torch/csrc/nms_shared.cu",
+                   "yolov3_tensorflow_tpu/ops/nms_pallas.py:115"),
+    "nms": ("yolov3_tensorflow_tpu_torch/csrc/nms.cu",
+            "yolov3_tensorflow_tpu/ops/nms_pallas.py:36"),
+}
 
 
 def fail(msg: str) -> None:
@@ -83,21 +118,35 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kernel, plain, kernel_iters: int, plain_iters: int):
+    """Kernel and plain version timed twice each, in turns (plain, kernel,
+    kernel, plain). Returns (kernel ms, plain ms, kernel runs, plain
+    runs)."""
+    kernel(), plain()
+    runs = {"kernel": [], "plain": []}
+    for name, fn, iters in (("plain", plain, plain_iters),
+                            ("kernel", kernel, kernel_iters),
+                            ("kernel", kernel, kernel_iters),
+                            ("plain", plain, plain_iters)):
+        runs[name].append(cuda_ms(fn, iters))
+    return (sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2, runs["kernel"],
+            runs["plain"])
+
+
 def kernel_cases(dev: torch.device, cases) -> float:
-    """Phase 3: kernel vs plain version, bit for bit. Returns the largest
-    |kernel - plain| over all keep bits (0.0 when they agree)."""
-    from yolov3_tensorflow_tpu_torch.ops.nms_cuda import (
-        nms_keep_mask_shared, nms_keep_mask_shared_reference)
+    """Phase 3, shared-candidate kernel vs plain version, bit for bit.
+    Returns the largest |kernel - plain| over all keep bits (0.0 when they
+    agree)."""
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
     worst = 0.0
     for case in cases:
         boxes = torch.from_numpy(case.boxes).to(dev)
         scores = torch.from_numpy(case.scores).to(dev)
-        got = nms_keep_mask_shared(boxes, scores, case.score_thresh,
-                                   case.iou_thresh)
+        got = nms_cuda.nms_keep_mask_shared(boxes, scores, case.score_thresh,
+                                            case.iou_thresh)
         torch.cuda.synchronize()
-        want = nms_keep_mask_shared_reference(boxes, scores,
-                                              case.score_thresh,
-                                              case.iou_thresh)
+        want = nms_cuda.nms_keep_mask_shared_reference(
+            boxes, scores, case.score_thresh, case.iou_thresh)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         worst = max(worst, err)
@@ -108,6 +157,61 @@ def kernel_cases(dev: torch.device, cases) -> float:
               f"equal={err == 0.0}")
         check(err == 0.0, f"kernel keep masks differ on case {case.name}")
     return worst
+
+
+def keep_mask_error(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou_thresh: float, what: str) -> float:
+    """Per-group kernel vs plain version on one input, bit for bit. Returns
+    the largest |kernel - plain| over all keep bits."""
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    got = nms_cuda.nms_keep_mask(boxes, valid, iou_thresh)
+    torch.cuda.synchronize()
+    want = nms_cuda.nms_keep_mask_reference(boxes, valid, iou_thresh)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    g, k = valid.shape
+    print(f"nms {what}: G={g} K={k} t={iou_thresh} kept={int(want.sum())} "
+          f"of valid={int(valid.sum())} equal={err == 0.0}")
+    check(err == 0.0, f"nms keep masks differ on {what}")
+    return err
+
+
+def detections(out, n: int):
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import \
+        detections_to_numpy
+    return [detections_to_numpy(out, i) for i in range(n)]
+
+
+def check_requests(results, sizes, max_out: int, what: str) -> None:
+    """Shapes, finiteness and a detection in every image."""
+    for b, out in zip(sizes, results):
+        check(out["boxes"].shape == (b, C * max_out, 4),
+              f"{what}: boxes shape {tuple(out['boxes'].shape)}")
+        for key in ("scores", "labels", "valid"):
+            check(out[key].shape == (b, C * max_out),
+                  f"{what}: {key} shape {tuple(out[key].shape)}")
+        check(bool(torch.isfinite(out["boxes"]).all()
+                   and torch.isfinite(out["scores"]).all()),
+              f"{what}: non-finite detections")
+        per_image = out["valid"].sum(dim=1)
+        check(bool((per_image > 0).all()),
+              f"{what}: an image of a batch-{b} request has no detection")
+        print(f"{what} request batch {b}: detections per image min "
+              f"{int(per_image.min())} median {int(per_image.median())} max "
+              f"{int(per_image.max())}; score range "
+              f"{float(out['scores'][out['valid']].min()):.4f}.."
+              f"{float(out['scores'][out['valid']].max()):.4f}")
+
+
+def same_detections(a, b, min_score: float, what: str) -> None:
+    """Detection identity both ways (testing.match_detections)."""
+    from yolov3_tensorflow_tpu_torch.testing import match_detections
+    n1, f1 = match_detections(a, b, min_score)
+    n2, f2 = match_detections(b, a, min_score)
+    print(f"{what}: {f1}/{n1} found one way, {f2}/{n2} the other "
+          f"(score >= {min_score:.2f})")
+    check(n1 > 0 and n2 > 0, f"{what}: no detections to compare")
+    check(f1 == n1 and f2 == n2, f"{what}: detections differ")
 
 
 def main() -> int:
@@ -123,21 +227,26 @@ def main() -> int:
           f"imported the port from {port.__file__}, not from {ROOT}")
     from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
     from yolov3_tensorflow_tpu_torch.models.convert import spread_head
-    from yolov3_tensorflow_tpu_torch.models.yolov3 import init_yolov3
+    from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import (
+        init_yolov3, yolov3_forward_folded)
     from yolov3_tensorflow_tpu_torch.ops import nms_cuda
     from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
         packed_candidates, yolov3_forward_packed)
-    from yolov3_tensorflow_tpu_torch.ops.postprocess import (
-        build_detector, detections_to_numpy)
-    from yolov3_tensorflow_tpu_torch.testing import (bench_case,
-                                                     match_detections,
-                                                     nms_cases)
+    from yolov3_tensorflow_tpu_torch.ops.nms import (compact_per_class,
+                                                     select_per_class)
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.testing import (bench_case, nms_cases,
+                                                     per_class_cases)
     from yolov3_tensorflow_tpu_torch.utils import kernels
+    from yolov3_tensorflow_tpu_torch.utils.weights import (
+        load_darknet_weights, save_darknet_weights)
     jaxy = [m for m in sys.modules if m.split(".")[0] in
             ("jax", "yolov3_tensorflow_tpu")]
     check(not jaxy, f"the port imported jax or the JAX package: {jaxy}")
 
     dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -148,20 +257,28 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    lib = kernels.build_kernel("nms_shared")
-    print(f"build nms_shared: {time.perf_counter() - t0:.2f} s -> "
-          f"{lib.relative_to(ROOT)}")
-    log = lib.with_suffix(".so.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling")):
-                print(f"  ptxas: {line.strip()}")
+    libs = kernels.build_kernels(*KERNELS)
+    print(f"build {', '.join(KERNELS)} (one nvcc each, in parallel): "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        print(f"  {name} -> {lib.relative_to(ROOT)}")
+        log = lib.with_suffix(".so.log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if any(w in line for w in ("registers", "spill", "Compiling")):
+                    print(f"  ptxas: {line.strip()}")
 
-    # ---- 3. kernel against its plain version -----------------------------
+    # ---- 3. kernels against their plain versions -------------------------
     cases = nms_cases(batch=16, seed=1) + [bench_case(seed=2)]
-    max_err = kernel_cases(dev, cases)
+    max_err = {"nms_shared": kernel_cases(dev, cases), "nms": 0.0}
+    for case in per_class_cases(groups=16, seed=1):
+        max_err["nms"] = max(max_err["nms"], keep_mask_error(
+            torch.from_numpy(case.boxes).to(dev),
+            torch.from_numpy(case.valid).to(dev), case.iou_thresh,
+            f"case {case.name}"))
+    launches = {}
 
-    # ---- 4. the main path at full width ----------------------------------
+    # ---- 4. the packed path at full width --------------------------------
     anchors = np.asarray(DEFAULT_ANCHORS, np.float32)
     variables = spread_head(
         init_yolov3(torch.Generator().manual_seed(0), C, device=dev), seed=0)
@@ -173,70 +290,170 @@ def main() -> int:
     torch.cuda.synchronize()
 
     nms_cuda.nms_keep_mask_shared.launches = 0
+    nms_cuda.nms_keep_mask.launches = 0
     results = []
     t0 = time.perf_counter()
     for images in batches:
         results.append(det(images))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = nms_cuda.nms_keep_mask_shared.launches
-
-    for b, out in zip(REQUESTS, results):
-        check(out["boxes"].shape == (b, C * SERVING["max_out"], 4),
-              f"boxes shape {tuple(out['boxes'].shape)}")
-        for key in ("scores", "labels", "valid"):
-            check(out[key].shape == (b, C * SERVING["max_out"]),
-                  f"{key} shape {tuple(out[key].shape)}")
-        check(bool(torch.isfinite(out["boxes"]).all()
-                   and torch.isfinite(out["scores"]).all()),
-              "non-finite detections")
-        per_image = out["valid"].sum(dim=1)
-        check(bool((per_image > 0).all()),
-              f"an image of a batch-{b} request has no detection")
-        print(f"request batch {b}: detections per image min "
-              f"{int(per_image.min())} median {int(per_image.median())} max "
-              f"{int(per_image.max())}; score range "
-              f"{float(out['scores'][out['valid']].min()):.4f}.."
-              f"{float(out['scores'][out['valid']].max()):.4f}")
-    print(f"served {len(REQUESTS)} requests ({sum(REQUESTS)} images) in "
-          f"{wall:.3f} s wall, first calls included; nms_shared launches "
-          f"{launches}")
-    check(launches == len(REQUESTS),
-          f"nms_shared launched {launches} times for {len(REQUESTS)} requests")
+    launches["nms_shared"] = nms_cuda.nms_keep_mask_shared.launches
+    check_requests(results, REQUESTS, SERVING["max_out"], "packed")
+    print(f"packed: served {len(REQUESTS)} requests ({sum(REQUESTS)} images) "
+          f"in {wall:.3f} s wall, first calls included; nms_shared launches "
+          f"{launches['nms_shared']}, nms launches "
+          f"{nms_cuda.nms_keep_mask.launches}")
+    check(launches["nms_shared"] == len(REQUESTS),
+          f"nms_shared launched {launches['nms_shared']} times for "
+          f"{len(REQUESTS)} requests")
 
     with torch.inference_mode():
         outs = yolov3_forward_packed(det.packed, batches[-1],
                                      compute_dtype=torch.bfloat16)
-        boxes, scores = packed_candidates(outs, C, det.tables,
-                                          SERVING["box_topk"])
-        keep = nms_cuda.nms_keep_mask_shared(boxes, scores, 0.3, 0.45)
-        want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores, 0.3,
-                                                       0.45)
+        boxes_p, scores_p = packed_candidates(outs, C, det.tables,
+                                              SERVING["box_topk"])
+        keep = nms_cuda.nms_keep_mask_shared(boxes_p, scores_p, 0.3, 0.45)
+        want = nms_cuda.nms_keep_mask_shared_reference(boxes_p, scores_p,
+                                                       0.3, 0.45)
         torch.cuda.synchronize()
     err = float((keep.float() - want.float()).abs().max())
-    max_err = max(max_err, err)
-    print(f"main-path candidates B={boxes.shape[0]} K={boxes.shape[1]} "
-          f"C={scores.shape[2]}: kept {int(want.sum())} of "
-          f"{int((scores >= 0.3).sum())} valid; kernel == plain: {err == 0.0}")
+    max_err["nms_shared"] = max(max_err["nms_shared"], err)
+    print(f"main-path candidates B={boxes_p.shape[0]} K={boxes_p.shape[1]} "
+          f"C={scores_p.shape[2]}: kept {int(want.sum())} of "
+          f"{int((scores_p >= 0.3).sum())} valid; kernel == plain: "
+          f"{err == 0.0}")
     check(err == 0.0, "kernel and plain keep masks differ on the main path")
 
     # fp32 on the GPU against fp32 on the CPU, 2 images
-    cpu = torch.device("cpu")
     small = batches[0][:2]
     g32 = build_detector(variables, anchors, C, (SIZE, SIZE), device=dev,
                          compute_dtype=torch.float32, **SERVING)(small)
     c32 = build_detector(variables, anchors, C, (SIZE, SIZE), device=cpu,
                          compute_dtype=torch.float32, **SERVING)(small.cpu())
-    g = [detections_to_numpy(g32, i) for i in range(2)]
-    r = [detections_to_numpy(c32, i) for i in range(2)]
-    n1, f1 = match_detections(r, g, 0.32)
-    n2, f2 = match_detections(g, r, 0.32)
-    print(f"fp32 GPU vs fp32 CPU reference: {f1}/{n1} CPU detections found "
-          f"on the GPU, {f2}/{n2} GPU detections found on the CPU")
-    check(n1 > 0 and n2 > 0, "no confident fp32 detections to compare")
-    check(f1 == n1 and f2 == n2, "GPU detector disagrees with the CPU one")
+    same_detections(detections(c32, 2), detections(g32, 2), 0.32,
+                    "packed fp32 GPU vs fp32 CPU")
 
-    # ---- 5. timings ------------------------------------------------------
+    # ---- 5. weights ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "yolov3_seeded.weights"
+        t0 = time.perf_counter()
+        save_darknet_weights(variables, str(path), C)
+        t1 = time.perf_counter()
+        loaded = load_darknet_weights(
+            init_yolov3(torch.Generator().manual_seed(7), C, device=dev),
+            str(path), C)
+        t2 = time.perf_counter()
+        size_mb = path.stat().st_size / 1e6
+    n_tensors = 0
+    for part in ("params", "batch_stats"):
+        for scope, tree in variables[part].items():
+            for name, p in tree.items():
+                for key, v in p.items():
+                    got = loaded[part][scope][name][key]
+                    check(got.device == v.device and torch.equal(got, v),
+                          f"weights: {part}/{scope}/{name}/{key} differs "
+                          f"after the round trip")
+                    n_tensors += 1
+    print(f"weights: wrote {size_mb:.1f} MB in {t1 - t0:.2f} s, loaded in "
+          f"{t2 - t1:.2f} s; {n_tensors} tensors equal")
+
+    # ---- 6. the exact path at full width ---------------------------------
+    exact = build_detector(loaded, anchors, C, (SIZE, SIZE), device=dev,
+                           compute_dtype=torch.bfloat16, mode="exact", **EVAL)
+    requests = batches[:EXACT_REQUESTS]
+    check(all(b.shape[0] == 8 for b in requests), "exact requests are batch 8")
+    torch.cuda.synchronize()
+    nms_cuda.nms_keep_mask_shared.launches = 0
+    nms_cuda.nms_keep_mask.launches = 0
+    results = []
+    t0 = time.perf_counter()
+    for images in requests:
+        results.append(exact(images))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["nms"] = nms_cuda.nms_keep_mask.launches
+    check_requests(results, [8] * EXACT_REQUESTS, EVAL["max_out"], "exact")
+    print(f"exact: served {EXACT_REQUESTS} requests (batch 8) in {wall:.3f} s "
+          f"wall, first calls included; nms launches {launches['nms']}, "
+          f"nms_shared launches {nms_cuda.nms_keep_mask_shared.launches}")
+    check(launches["nms"] == EXACT_REQUESTS,
+          f"nms launched {launches['nms']} times for {EXACT_REQUESTS} "
+          f"requests")
+
+    with torch.inference_mode():
+        fmaps = yolov3_forward_folded(exact.folded, requests[-1],
+                                      compute_dtype=torch.bfloat16)
+        boxes, confs, probs = predict_boxes(fmaps, anchors, C, (SIZE, SIZE))
+        top_scores, top_boxes, valid = select_per_class(
+            boxes, confs * probs, EVAL["pre_topk"], EVAL["score_thresh"])
+        b, _, k = valid.shape
+        gboxes, gvalid = top_boxes.reshape(b * C, k, 4), valid.reshape(b * C, k)
+        max_err["nms"] = max(max_err["nms"], keep_mask_error(
+            gboxes, gvalid, EVAL["iou_thresh"], "exact-path candidates"))
+
+    # fp32 on the GPU against fp32 on the CPU, 2 images, demo config
+    g32 = build_detector(loaded, anchors, C, (SIZE, SIZE), device=dev,
+                         compute_dtype=torch.float32, mode="exact",
+                         **DEMO)(small)
+    c32 = build_detector(loaded, anchors, C, (SIZE, SIZE), device=cpu,
+                         compute_dtype=torch.float32, mode="exact",
+                         **DEMO)(small.cpu())
+    same_detections(detections(c32, 2), detections(g32, 2),
+                    DEMO["score_thresh"] + 0.02, "exact fp32 GPU vs fp32 CPU")
+
+    # ---- 7. the prefilter path -------------------------------------------
+    images = batches[0]
+    pre = build_detector(loaded, anchors, C, (SIZE, SIZE), device=dev,
+                         compute_dtype=torch.bfloat16, mode="prefilter",
+                         box_topk=BOX_TOPK, **DEMO)
+    torch.cuda.synchronize()
+    nms_cuda.nms_keep_mask_shared.launches = 0
+    nms_cuda.nms_keep_mask.launches = 0
+    out = pre(images)
+    torch.cuda.synchronize()
+    print(f"prefilter: 1 request (batch 8); nms_shared launches "
+          f"{nms_cuda.nms_keep_mask_shared.launches}, nms launches "
+          f"{nms_cuda.nms_keep_mask.launches}")
+    check(nms_cuda.nms_keep_mask_shared.launches == 1,
+          "prefilter: nms_shared did not launch once")
+    check_requests([out], [8], DEMO["max_out"], "prefilter")
+
+    # the exactness check runs in fp32: bf16 logits tie often, and the two
+    # paths order equal scores differently (candidate rank, anchor index)
+    pre32 = build_detector(loaded, anchors, C, (SIZE, SIZE), device=dev,
+                           compute_dtype=torch.float32, mode="prefilter",
+                           box_topk=BOX_TOPK, **DEMO)
+    with torch.inference_mode():
+        fmaps = yolov3_forward_folded(pre32.folded, images,
+                                      compute_dtype=torch.float32)
+        _, confs, probs = predict_boxes(fmaps, anchors, C, (SIZE, SIZE))
+        best = (confs * probs).amax(dim=-1)                      # [8, A]
+    thresh, fits = None, None
+    for t in (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9):
+        passing = (best >= t).sum(dim=1)
+        print(f"prefilter: boxes passing score {t:.1f} per image (fp32): "
+              f"{passing.tolist()} (box_topk {BOX_TOPK})")
+        fits = ((passing > 0) & (passing <= BOX_TOPK)).nonzero()[:, 0]
+        if len(fits):
+            thresh = t
+            break
+    check(thresh is not None, "prefilter: no threshold leaves an image with "
+          f"1..{BOX_TOPK} passing boxes")
+    print(f"prefilter: {len(fits)} of 8 images meet the exactness condition "
+          f"at score {thresh:.1f}: images {fits.tolist()}")
+    kw = dict(DEMO, score_thresh=thresh)
+    sel = images[fits]
+    same_detections(
+        detections(build_detector(
+            loaded, anchors, C, (SIZE, SIZE), device=dev,
+            compute_dtype=torch.float32, mode="prefilter", box_topk=BOX_TOPK,
+            **kw)(sel), len(fits)),
+        detections(build_detector(
+            loaded, anchors, C, (SIZE, SIZE), device=dev,
+            compute_dtype=torch.float32, mode="exact", **kw)(sel), len(fits)),
+        thresh, "prefilter vs exact, fp32")
+
+    # ---- 8. timings ------------------------------------------------------
     timings = {}
     for b, iters in ((8, 30), (128, 10)):
         images = batches[0] if b == 8 else batches[-1]
@@ -244,7 +461,7 @@ def main() -> int:
             det(images)
         ms = cuda_ms(lambda: det(images), iters)
         timings[b] = ms
-        print(f"detector batch {b}: {ms:.3f} ms/batch, "
+        print(f"packed detector batch {b}: {ms:.3f} ms/batch, "
               f"{b * 1000.0 / ms:.1f} img/s [{card}]")
 
     with torch.inference_mode():
@@ -254,34 +471,74 @@ def main() -> int:
         cand_ms = cuda_ms(lambda: packed_candidates(
             outs, C, det.tables, SERVING["box_topk"]), 20)
         nms_ms = cuda_ms(lambda: nms_cuda.batched_nms_shared(
-            boxes, scores, max_out=128, score_thresh=0.3, iou_thresh=0.45), 20)
-    print(f"stages at batch 128: forward {fwd_ms:.3f} ms, prefilter+decode "
-          f"{cand_ms:.3f} ms, batched_nms_shared {nms_ms:.3f} ms [{card}]")
+            boxes_p, scores_p, max_out=128, score_thresh=0.3,
+            iou_thresh=0.45), 20)
+    print(f"packed stages at batch 128: forward {fwd_ms:.3f} ms, "
+          f"prefilter+decode {cand_ms:.3f} ms, batched_nms_shared "
+          f"{nms_ms:.3f} ms [{card}]")
 
-    def kernel():
-        nms_cuda.nms_keep_mask_shared(boxes, scores, 0.3, 0.45)
-
-    def plain():
-        nms_cuda.nms_keep_mask_shared_reference(boxes, scores, 0.3, 0.45)
-
-    kernel(), plain()
-    order = [("plain", plain, 5), ("kernel", kernel, 200),
-             ("kernel", kernel, 200), ("plain", plain, 5)]
-    runs = {"kernel": [], "plain": []}
-    for name, fn, iters in order:
-        runs[name].append(cuda_ms(fn, iters))
-    k_ms = sum(runs["kernel"]) / 2
-    p_ms = sum(runs["plain"]) / 2
+    k_ms, p_ms, k_runs, p_runs = in_turns(
+        lambda: nms_cuda.nms_keep_mask_shared(boxes_p, scores_p, 0.3, 0.45),
+        lambda: nms_cuda.nms_keep_mask_shared_reference(boxes_p, scores_p,
+                                                        0.3, 0.45), 200, 5)
+    kernel_ms = {"nms_shared": (k_ms, p_ms)}
     print(f"nms_shared keep masks B=128 K=64 C=80: kernel {k_ms:.4f} ms "
-          f"(runs {runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), plain "
-          f"PyTorch {p_ms:.4f} ms (runs {runs['plain'][0]:.4f}, "
-          f"{runs['plain'][1]:.4f}) [{card}]")
+          f"(runs {k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch "
+          f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) [{card}]")
 
-    # ---- 6. records ------------------------------------------------------
+    images = batches[0]
+    for name, cfg in (("eval", EVAL), ("demo", DEMO)):
+        d = exact if name == "eval" else build_detector(
+            loaded, anchors, C, (SIZE, SIZE), device=dev,
+            compute_dtype=torch.bfloat16, mode="exact", **cfg)
+        for _ in range(3):
+            d(images)
+        ms = cuda_ms(lambda: d(images), 10)
+        print(f"exact detector batch 8, {name} config (pre_topk "
+              f"{cfg['pre_topk']}, score {cfg['score_thresh']}): {ms:.3f} "
+              f"ms/batch, {8 * 1000.0 / ms:.1f} img/s [{card}]")
+
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: yolov3_forward_folded(
+            exact.folded, images, compute_dtype=torch.bfloat16), 10)
+        fmaps = yolov3_forward_folded(exact.folded, images,
+                                      compute_dtype=torch.bfloat16)
+
+        def select():
+            bx, cf, pr = predict_boxes(fmaps, anchors, C, (SIZE, SIZE))
+            return select_per_class(bx, cf * pr, EVAL["pre_topk"],
+                                    EVAL["score_thresh"])
+
+        sel_ms = cuda_ms(select, 10)
+        top_scores, top_boxes, valid = select()
+        b, _, k = valid.shape
+        gboxes, gvalid = top_boxes.reshape(b * C, k, 4), valid.reshape(b * C, k)
+        k2_ms = cuda_ms(lambda: nms_cuda.nms_keep_mask(
+            gboxes, gvalid, EVAL["iou_thresh"]), 20)
+        keep = nms_cuda.nms_keep_mask(gboxes, gvalid,
+                                      EVAL["iou_thresh"]).view(b, C, k)
+        compact_ms = cuda_ms(lambda: compact_per_class(
+            keep, top_scores, top_boxes, EVAL["max_out"]), 20)
+    print(f"exact stages at batch 8, eval config: forward {fwd_ms:.3f} ms, "
+          f"decode+per-class sort+gather {sel_ms:.3f} ms, nms kernel "
+          f"{k2_ms:.3f} ms, compaction {compact_ms:.3f} ms [{card}]")
+
+    k_ms, p_ms, k_runs, p_runs = in_turns(
+        lambda: nms_cuda.nms_keep_mask(gboxes, gvalid, EVAL["iou_thresh"]),
+        lambda: nms_cuda.nms_keep_mask_reference(gboxes, gvalid,
+                                                 EVAL["iou_thresh"]), 20, 2)
+    kernel_ms["nms"] = (k_ms, p_ms)
+    print(f"nms keep masks G={b * C} K={k}: kernel {k_ms:.4f} ms (runs "
+          f"{k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch {p_ms:.4f} ms "
+          f"(runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) [{card}]")
+
+    # ---- 9. records ------------------------------------------------------
     print(json.dumps({"kernels": [{
-        "name": "nms_shared", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": max_err[name], "ms": kernel_ms[name][0],
+        "plain_ms": kernel_ms[name][1]}
+        for name, (source, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     names = _modules()
-    assert "yolov3_tensorflow_tpu_torch.ops.nms_cuda" in names
+    for name in ("ops.nms_cuda", "ops.nms", "models.decode",
+                 "utils.weights", "utils.kernels", "testing"):
+        assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for name in {names!r}:\n"
@@ -29,7 +31,8 @@ def test_every_module_imports_with_jax_blocked():
             "bad = sorted(m for m, mod in sys.modules.items()\n"
             "             if (m.split('.')[0] == 'jax' and mod is not None)\n"
             "             or m.startswith(('yolov3_tensorflow_tpu.models',\n"
-            "                              'yolov3_tensorflow_tpu.ops')))\n"
+            "                              'yolov3_tensorflow_tpu.ops',\n"
+            "                              'yolov3_tensorflow_tpu.utils')))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,14 +1,18 @@
-"""The port's packed serving path against the JAX package, on the CPU.
+"""The port's detectors against the JAX package, on the CPU.
 
 - postprocess: the same packed head outputs (numpy, seeded) go through both
   packages' `postprocess_packed`, the JAX one with exact top-k and its
-  Pallas shared NMS in interpret mode.
-- end to end: `build_detector(mode="packed")` of both packages on the same
-  spread-head weights (models.convert.spread_head) and images at 96^2, fp32
-  compute. Both round the packed outputs to bf16 (the JAX detector always
-  does), so a conv summed in another order can move a logit by one bf16
-  step; the detectors are held to detection identity (same label, IoU >=
-  0.9) for every detection scored at least 0.02 above the threshold.
+  Pallas shared NMS in interpret mode; the same plain feature maps through
+  both packages' `postprocess` (exact) and `postprocess_prefilter`, the JAX
+  ones with use_pallas=False (its plain per-class NMS, which is also the
+  port's CPU route).
+- end to end: `build_detector` of both packages, modes "packed", "exact"
+  and "prefilter", on the same spread-head weights
+  (models.convert.spread_head) and images at 96^2, fp32 compute. A conv
+  summed in another order moves a logit in its last bits (and the packed
+  path rounds its outputs to bf16 in both packages, so by up to one bf16
+  step there); the detectors are held to detection identity (same label,
+  IoU >= 0.9) for every detection scored at least 0.02 above the threshold.
 """
 
 import jax
@@ -19,11 +23,13 @@ import torch
 
 from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
 from yolov3_tensorflow_tpu.ops import fast_postprocess as jfp
+from yolov3_tensorflow_tpu.ops import postprocess as jpp
 from yolov3_tensorflow_tpu.ops.postprocess import \
     build_detector as jax_build_detector
 from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
                                                         spread_head)
 from yolov3_tensorflow_tpu_torch.ops import fast_postprocess as tfp
+from yolov3_tensorflow_tpu_torch.ops import postprocess as tpp
 from yolov3_tensorflow_tpu_torch.ops.postprocess import (build_detector,
                                                          detections_to_numpy,
                                                          pack_detections,
@@ -72,12 +78,44 @@ def test_postprocess_packed_matches_jax(dtype, max_out):
         np.testing.assert_allclose(got[key].numpy(), want[key], rtol=1e-5)
 
 
+@pytest.mark.parametrize("kind", ["exact", "prefilter"])
+def test_postprocess_matches_jax(kind):
+    """Rows line up one to one: `valid` equal, scores to rtol 1e-5 and
+    boxes to rtol 1e-4 on the valid rows."""
+    rng = np.random.default_rng(5)
+    maps = [rng.normal(-2, 1.5, (2, g, g, 3 * (5 + C))).astype(np.float32)
+            for g in (2, 4, 8)]
+    kw = dict(max_out=20, pre_topk=128, score_thresh=SCORE_T,
+              iou_thresh=0.45)
+    if kind == "exact":
+        got = tpp.postprocess([torch.from_numpy(m) for m in maps], ANCHORS, C,
+                              (64, 64), **kw)
+        want = jpp.postprocess([jnp.asarray(m) for m in maps], ANCHORS, C,
+                               (64, 64), use_pallas=False, **kw)
+    else:
+        got = tfp.postprocess_prefilter([torch.from_numpy(m) for m in maps],
+                                        ANCHORS, C, (64, 64), box_topk=96,
+                                        **kw)
+        want = jfp.postprocess_prefilter([jnp.asarray(m) for m in maps],
+                                         ANCHORS, C, (64, 64), box_topk=96,
+                                         use_pallas=False, **kw)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    v = want["valid"]
+    assert v.sum() >= 20
+    for key in ("valid", "labels"):
+        np.testing.assert_array_equal(got[key].numpy(), want[key])
+    np.testing.assert_allclose(got["scores"].numpy()[v], want["scores"][v],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["boxes"].numpy()[v], want["boxes"][v],
+                               rtol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def spread_vars():
     return spread_head(numpy_variables(C, seed=0), seed=0)
 
 
-def test_detector_end_to_end_matches_jax(spread_vars):
+def _detector_matches_jax(mode, spread_vars):
     size = 96
     kw = dict(max_out=128, box_topk=64, score_thresh=SCORE_T,
               iou_thresh=0.45)
@@ -86,11 +124,11 @@ def test_detector_end_to_end_matches_jax(spread_vars):
 
     det = build_detector(from_jax_variables(spread_vars, device=CPU), ANCHORS,
                          C, (size, size), device=CPU,
-                         compute_dtype=torch.float32, **kw)
+                         compute_dtype=torch.float32, mode=mode, **kw)
     assert not det.training
     got = det(torch.from_numpy(img))
     jdet = jax_build_detector(spread_vars, ANCHORS, C, (size, size),
-                              mode="packed", compute_dtype=jnp.float32,
+                              mode=mode, compute_dtype=jnp.float32,
                               use_pallas=False, **kw)
     want = jax.device_get(jdet(jnp.asarray(img)))
 
@@ -110,7 +148,11 @@ def test_detector_end_to_end_matches_jax(spread_vars):
     assert n_w >= 20 and n_g >= 20, f"only {n_w} / {n_g} confident detections"
     assert found_w == n_w, f"port misses {n_w - found_w} of {n_w} detections"
     assert found_g == n_g, f"port adds {n_g - found_g} of {n_g} detections"
+    return got
 
+
+def test_detector_end_to_end_matches_jax(spread_vars):
+    got = _detector_matches_jax("packed", spread_vars)
     # pack/unpack is the detections_to_numpy contract in one buffer
     packed = pack_detections(got)
     for i in range(2):
@@ -119,9 +161,18 @@ def test_detector_end_to_end_matches_jax(spread_vars):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("mode", ["exact", "prefilter"])
+def test_folded_detector_matches_jax(mode, spread_vars):
+    got = _detector_matches_jax(mode, spread_vars)
+    if mode == "exact":
+        # rows are score-descending within each class group
+        s = torch.where(got["valid"], got["scores"], -1.0).view(2, C, 128)
+        assert bool((s[..., :-1] >= s[..., 1:]).all())
+
+
 def test_build_detector_defers_other_modes(spread_vars):
     v = from_jax_variables(spread_vars, device=CPU)
-    for mode in ("exact", "prefilter", "split", "stem8", "int8"):
+    for mode in ("split", "stem8", "int8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode=mode)
     with pytest.raises(ValueError):

@@ -1,17 +1,22 @@
 """yolov3_tensorflow_tpu_torch — the PyTorch / CUDA port of yolov3_tensorflow_tpu.
 
 The JAX package (`yolov3_tensorflow_tpu`) is the reference; this package
-re-implements its serving detector for an NVIDIA Hopper GPU and keeps the
+re-implements its inference path for an NVIDIA Hopper GPU and keeps the
 reference's module names so that each counterpart is easy to find:
 
 - `models.layers`, `models.yolov3`: the BN-folded Darknet-53 + FPN forward
   over plain param dicts keyed by the JAX paths (`backbone/conv_i`,
   `head/conv_i`), convs in channels_last on cuDNN
 - `models.convert`: JAX variable trees (numpy leaves) -> this package's trees
-- `ops.fast_postprocess`, `ops.postprocess`: the packed serving head,
-  candidate prefilter, sparse decode and `build_detector(mode="packed")`
-- `ops.nms_cuda`: the shared-candidate NMS, a hand-written CUDA kernel
-  (`csrc/nms_shared.cu`) with its plain PyTorch version beside it
+- `models.decode`: anchor decode of the raw feature maps
+- `ops.fast_postprocess`, `ops.postprocess`: the packed serving head, the
+  candidate prefilter, the exact postprocess and `build_detector` with the
+  "packed", "exact" and "prefilter" modes
+- `ops.nms`: the plain per-class NMS and the numpy oracles
+- `ops.nms_cuda`: the shared-candidate and the per-group NMS, hand-written
+  CUDA kernels (`csrc/nms_shared.cu`, `csrc/nms.cu`) with their plain
+  PyTorch versions beside them
+- `utils.weights`: darknet `.weights` import and export
 - `utils.kernels`: builds the CUDA sources at first use
 
 The package imports torch and numpy, never jax. Every function takes its

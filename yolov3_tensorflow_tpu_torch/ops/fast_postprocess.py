@@ -1,9 +1,14 @@
-"""Packed serving head: one detection conv per scale, prefilter, sparse
-decode, shared-candidate NMS.
+"""Candidate-prefilter postprocess: the packed serving head, and the
+prefilter over the folded forward's feature maps.
 
-Counterpart of the packed path of `yolov3_tensorflow_tpu/ops/fast_postprocess.py`.
-Each scale's single 1x1 detection conv emits 3 anchor blocks of `row` (=128)
-channels, laid out as
+Counterpart of the packed and prefilter paths of
+`yolov3_tensorflow_tpu/ops/fast_postprocess.py`. Both score every anchor by
+sigmoid(conf) * sigmoid(max class logit), take the exact top K per image,
+decode only those candidates from flat per-anchor tables, and run per-class
+NMS over the K candidates.
+
+Packed head: each scale's single 1x1 detection conv emits 3 anchor blocks
+of `row` (=128) channels, laid out as
 
     [0:C)      class logits
     [C]        objectness logit
@@ -11,15 +16,18 @@ channels, laid out as
     [C+5:row)  padding, bias -30 (sigmoid ~ 0)
 
 so [B, Hg, Wg, 3*row] -> [B, Hg*Wg*3, row] is a free view whose index is
-the global anchor index (scale-major, then y, x, anchor). Postprocess
-scores every anchor by sigmoid(conf) * sigmoid(max class logit), takes the
-exact top K per image, decodes only those candidates, and runs per-class
-NMS over the shared candidate set.
+the global anchor index (scale-major, then y, x, anchor).
+
+Prefilter (`postprocess_prefilter`): the same selection over the plain
+[B, Hg, Wg, 3*(5+C)] maps of `models.yolov3.yolov3_forward_folded`. It
+equals the exact path (`ops.postprocess.postprocess`) whenever every box
+that passes the score threshold in any class ranks in the top box_topk,
+which holds when no more than box_topk boxes pass.
 
 Left out on purpose: the one-hot MXU gather and the `cell_major` layout
 (TPU DMA-latency workarounds; a torch.gather per scale does the job here),
-approximate top-k, the score-dtype knob, and padding K to a multiple of 8
-(a TPU sublane rule; the CUDA kernel takes any K <= 1024).
+approximate top-k, the aligned head, the score-dtype knob, and padding K to
+a multiple of 8 (a TPU sublane rule; the CUDA kernel takes any K <= 1024).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 from yolov3_tensorflow_tpu_torch.models.layers import conv2d
 from yolov3_tensorflow_tpu_torch.models.yolov3 import (DETECTION_CONVS,
                                                        folded_body)
+from yolov3_tensorflow_tpu_torch.ops.nms import batched_nms
 from yolov3_tensorflow_tpu_torch.ops.nms_cuda import batched_nms_shared
 
 _LANE = 128
@@ -204,3 +213,61 @@ def postprocess_packed(packed_outs: Sequence[torch.Tensor],
     return batched_nms_shared(boxes, scores, max_out=max_out,
                               score_thresh=score_thresh,
                               iou_thresh=iou_thresh)
+
+
+def flatten_feature_maps(feature_maps: Sequence[torch.Tensor],
+                         num_classes: int) -> torch.Tensor:
+    """[N, Hg, Wg, 3*(5+C)] x3 -> [N, A, 5+C] raw rows, predict_boxes
+    order."""
+    return torch.cat([f.reshape(f.shape[0], -1, 5 + num_classes)
+                      for f in feature_maps], dim=1)
+
+
+def postprocess_prefilter(feature_maps: Sequence[torch.Tensor],
+                          anchors: np.ndarray, num_classes: int,
+                          img_size: Tuple[int, int], *,
+                          max_out: int = 50, box_topk: int = 256,
+                          pre_topk: int = 128, score_thresh: float = 0.3,
+                          iou_thresh: float = 0.45,
+                          tables: Optional[torch.Tensor] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Batched detection from the folded forward's raw feature maps through
+    the objectness prefilter (see the module docstring).
+
+    Returns dict of [B, C*max_out, ...], the `ops.postprocess` contract.
+    `tables` is `decode_tables(img_size, anchors)` on the maps' device, built
+    here when not given. The NMS follows the JAX package's routes: on CUDA
+    tensors the shared-candidate kernel over all K candidates (rows in
+    candidate order when max_out >= K), on CPU tensors the plain per-class
+    `batched_nms` over each class's min(pre_topk, K) best. Unlike the exact
+    path's decode, the box sizes are exp(tw) with no clamp, as in the JAX
+    prefilter.
+    """
+    c = num_classes
+    raw = flatten_feature_maps(feature_maps, c)                 # [B, A, 5+C]
+    k_box = min(box_topk, raw.shape[1])
+
+    obj = torch.sigmoid(raw[..., 4].float()) * torch.sigmoid(
+        raw[..., 5:5 + c].amax(dim=-1).float())
+    cand = torch.sort(obj, dim=1, descending=True, stable=True).indices
+    cand = cand[:, :k_box]
+    rows = raw.float().gather(1, cand[..., None].expand(-1, -1, 5 + c))
+
+    if tables is None:
+        tables = decode_tables(img_size, anchors, device=raw.device)
+    gx, gy, grw, grh, gaw, gah = tables[:, cand]                # [B, K] each
+    cx = (torch.sigmoid(rows[..., 0]) + gx) * grw
+    cy = (torch.sigmoid(rows[..., 1]) + gy) * grh
+    w = torch.exp(rows[..., 2]) * gaw
+    h = torch.exp(rows[..., 3]) * gah
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                        dim=-1)
+    scores = torch.sigmoid(rows[..., 4:5]) * torch.sigmoid(rows[..., 5:5 + c])
+
+    if raw.device.type == "cuda":
+        return batched_nms_shared(boxes, scores, max_out=max_out,
+                                  score_thresh=score_thresh,
+                                  iou_thresh=iou_thresh)
+    return batched_nms(boxes, scores, max_out=max_out,
+                       pre_topk=min(pre_topk, k_box),
+                       score_thresh=score_thresh, iou_thresh=iou_thresh)

@@ -1,15 +1,21 @@
-"""Shared-candidate per-class NMS: CUDA kernel wrapper and plain version.
+"""CUDA NMS kernels: their wrappers and plain versions.
 
-Counterpart of the shared path of `yolov3_tensorflow_tpu/ops/nms_pallas.py`
-(`nms_keep_mask_shared_pallas`, `batched_nms_shared_pallas`). Every class of
-an image scores the same K candidate boxes. Per image the IoU>t mask is
-built once; per class, exact greedy NMS runs over the candidates whose score
-reaches the score threshold, in score-descending order with ties going to
-the lower candidate index.
+Two kernels, each the counterpart of a Pallas kernel of
+`yolov3_tensorflow_tpu/ops/nms_pallas.py`:
 
-`nms_keep_mask_shared` launches the CUDA kernel (`csrc/nms_shared.cu`) for
-CUDA tensors and runs `nms_keep_mask_shared_reference`, the plain PyTorch
-version, only for CPU tensors. There is no fallback from one to the other.
+- shared-candidate NMS (`nms_keep_mask_shared`, `batched_nms_shared`;
+  `csrc/nms_shared.cu`), the packed serving path's. Every class of an image
+  scores the same K candidate boxes. Per image the IoU>t mask is built
+  once; per class, exact greedy NMS runs over the candidates whose score
+  reaches the score threshold, in score-descending order with ties going
+  to the lower candidate index.
+- per-group NMS (`nms_keep_mask`, `batched_nms_kernel`; `csrc/nms.cu`), the
+  exact path's. Each (image, class) group brings its own K candidates,
+  already sorted by score, and a validity mask; the rank is the row index.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+PyTorch version (`*_reference`) only for CPU tensors. There is no fallback
+from one to the other: anything else raises.
 """
 
 from __future__ import annotations
@@ -21,8 +27,11 @@ from typing import Dict
 import torch
 
 from yolov3_tensorflow_tpu_torch.ops.boxes import iou_xyxy
+from yolov3_tensorflow_tpu_torch.ops.nms import (compact_per_class,
+                                                 select_per_class,
+                                                 suppression_mask)
 
-MAX_K = 1024   # the kernel keeps K x K IoU>t bits in shared memory
+MAX_K = 1024   # the kernels keep K x K IoU>t bits in shared memory
 
 
 def nms_keep_mask_shared_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -91,8 +100,9 @@ def nms_keep_mask_shared(boxes: torch.Tensor, scores: torch.Tensor,
     if keep.numel() == 0:
         return keep
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = _launcher()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
-                      b, k, c, float(iou_thresh), float(score_thresh), stream)
+    err = _shared_launcher()(boxes.data_ptr(), scores.data_ptr(),
+                             keep.data_ptr(), b, k, c, float(iou_thresh),
+                             float(score_thresh), stream)
     if err != 0:
         raise RuntimeError(f"nms_shared kernel launch failed: CUDA error {err}")
     nms_keep_mask_shared.launches += 1
@@ -103,7 +113,7 @@ nms_keep_mask_shared.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _shared_launcher():
     """Build (at first use) and bind the C entry point of nms_shared.cu.
     Pointers and the stream are c_void_p so ctypes does not cut them to
     32 bits."""
@@ -156,3 +166,94 @@ def batched_nms_shared(boxes: torch.Tensor, scores: torch.Tensor, *,
         "labels": labels.reshape(b, c * max_out),
         "valid": sel_valid.reshape(b, c * max_out),
     }
+
+
+def nms_keep_mask_reference(boxes: torch.Tensor, valid: torch.Tensor,
+                            iou_thresh: float) -> torch.Tensor:
+    """Plain PyTorch keep masks. boxes [G, K, 4] fp32, each row sorted by
+    score descending; valid [G, K] bool -> keep [G, K] bool.
+
+    `ops.nms.suppression_mask` over the groups: a sequential greedy over
+    the K ranks, vectorized over groups.
+    """
+    return suppression_mask(boxes, valid, iou_thresh)
+
+
+def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor,
+                  iou_thresh: float) -> torch.Tensor:
+    """Per-group greedy keep masks over score-sorted candidates.
+
+    boxes [G, K, 4] xyxy fp32, valid [G, K] bool -> keep [G, K] bool:
+    candidate j is kept when valid and no kept i < j has IoU > iou_thresh
+    with it. CUDA tensors go to the hand-written kernel (1 <= K <= 1024,
+    contiguous inputs); CPU tensors to `nms_keep_mask_reference`. Each
+    kernel launch adds one to `nms_keep_mask.launches`.
+    """
+    if boxes.device.type == "cpu" and valid.device.type == "cpu":
+        return nms_keep_mask_reference(boxes, valid, iou_thresh)
+    if boxes.device.type != "cuda" or valid.device != boxes.device:
+        raise ValueError(f"boxes on {boxes.device} and valid on "
+                         f"{valid.device}: need both on one CUDA device "
+                         f"(or both on the CPU)")
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"nms takes float32 boxes and bool valid, got "
+                        f"{boxes.dtype} / {valid.dtype}")
+    if boxes.ndim != 3 or boxes.shape[2] != 4 or valid.shape != boxes.shape[:2]:
+        raise ValueError(f"need boxes [G, K, 4] and valid [G, K], got "
+                         f"{tuple(boxes.shape)} and {tuple(valid.shape)}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("nms takes contiguous boxes and valid")
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms reads boxes as float4: need a 16-byte aligned "
+                         "boxes tensor")
+    g, k, _ = boxes.shape
+    if k > MAX_K:
+        raise ValueError(f"nms takes K <= {MAX_K} candidates per group, got "
+                         f"{k}: lower pre_topk")
+    keep = torch.empty((g, k), dtype=torch.bool, device=boxes.device)
+    if keep.numel() == 0:
+        return keep
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    err = _per_group_launcher()(boxes.data_ptr(), valid.data_ptr(),
+                                keep.data_ptr(), g, k, float(iou_thresh),
+                                stream)
+    if err != 0:
+        raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
+    nms_keep_mask.launches += 1
+    return keep
+
+
+nms_keep_mask.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _per_group_launcher():
+    """Build (at first use) and bind the C entry point of nms.cu."""
+    from yolov3_tensorflow_tpu_torch.utils.kernels import load_kernel
+    fn = load_kernel("nms").nms_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def batched_nms_kernel(boxes: torch.Tensor, scores: torch.Tensor, *,
+                       max_out: int = 50, pre_topk: int = 256,
+                       score_thresh: float = 0.5, iou_thresh: float = 0.5
+                       ) -> Dict[str, torch.Tensor]:
+    """`ops.nms.batched_nms` with the suppression in `nms_keep_mask`: the
+    per-class stable top-k, the box gather, one kernel launch for all
+    B * C groups, the compaction top-k and the padding to max_out.
+
+    boxes [B, A, 4], scores [B, A, C] -> dict of [B, C*max_out, ...].
+    """
+    b = boxes.shape[0]
+    c = scores.shape[2]
+    top_scores, top_boxes, valid = select_per_class(boxes, scores, pre_topk,
+                                                    score_thresh)
+    k = top_scores.shape[-1]
+    keep = nms_keep_mask(top_boxes.reshape(b * c, k, 4),
+                         valid.reshape(b * c, k), iou_thresh)
+    return compact_per_class(keep.view(b, c, k), top_scores, top_boxes,
+                             max_out)

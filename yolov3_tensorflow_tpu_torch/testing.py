@@ -1,8 +1,9 @@
 """Seeded inputs shared by the tests and chip_smoke.py.
 
-`nms_cases` is the one case list used by the CPU tests (plain version
-against the JAX kernel and the numpy oracle) and by chip_smoke.py (CUDA
-kernel against the plain version on the card). `numpy_variables` makes a
+`nms_cases` (shared-candidate NMS) and `per_class_cases` (per-group NMS)
+are the case lists used by the CPU tests (plain versions against the JAX
+kernels and the numpy oracle) and by chip_smoke.py (CUDA kernels against
+their plain versions on the card). `numpy_variables` makes a
 weight tree in the JAX package's layout, and `match_detections` is the
 detection-identity check both use. Everything is made with numpy from a
 seed, so both packages and both devices see the same bits.
@@ -174,6 +175,52 @@ def nms_cases(batch: int, seed: int = 0) -> List[NmsCase]:
             s[i, 3 * p + 2] = 0.7      # (and box 1 against box 2)
     s[:, :, 1::2] = rng.uniform(0, 1, (batch, k, c // 2))
     cases.append(NmsCase("iou_at_threshold", boxes, s, SCORE_T, IOU_T))
+    return cases
+
+
+class KeepCase(NamedTuple):
+    name: str
+    boxes: np.ndarray          # [G, K, 4] float32 xyxy, rows in rank order
+    valid: np.ndarray          # [G, K] bool
+    iou_thresh: float
+
+
+def per_class_cases(groups: int, ks=(64, 200, 256, 1024), seed: int = 0
+                    ) -> List[KeepCase]:
+    """The per-group kernel's case list at `groups` (>= 2) groups per case:
+    at each K in `ks` a dense random set (deep suppression chains) with
+    zero-area and duplicate boxes, ~15% of the rows invalid at random (not
+    a prefix) and the last group all invalid; then the three-box chain
+    (a suppresses b, b would suppress c, a does not: keep a and c) at K=8,
+    and at K=64 box triples whose IoUs lie within two float32 ulps of t,
+    some anchors invalid."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for k in ks:
+        boxes = _boxes(rng, groups, k, span=12.0 * np.sqrt(k))
+        boxes[:, 3::7, 2] = boxes[:, 3::7, 0]                # zero width
+        dup = np.arange(4, k - 1, 11)
+        boxes[:, dup + 1] = boxes[:, dup]                    # duplicates
+        valid = rng.uniform(0, 1, (groups, k)) < 0.85
+        valid[-1] = False
+        cases.append(KeepCase(f"random_k{k}", boxes, valid, IOU_T))
+
+    boxes = np.zeros((groups, 8, 4), np.float32)
+    boxes[:, :3] = [[0, 0, 10, 10], [6, 0, 16, 10], [12, 0, 22, 10]]
+    valid = np.zeros((groups, 8), bool)
+    valid[:, :3] = True                                      # IoU(a, b) 0.25
+    cases.append(KeepCase("chain", boxes, valid, 0.2))
+
+    pairs = threshold_pairs(IOU_T, groups * 21, rng)
+    boxes = np.zeros((groups, 64, 4), np.float32)
+    valid = np.zeros((groups, 64), bool)
+    for g in range(groups):
+        for p in range(21):
+            boxes[g, 3 * p:3 * p + 3] = pairs[g * 21 + p]
+            # a valid anchor keeps box 2 (IoU <= t) and drops box 1; without
+            # it box 1 is kept and drops box 2
+            valid[g, 3 * p:3 * p + 3] = [p % 4 != 3, True, True]
+    cases.append(KeepCase("iou_at_threshold", boxes, valid, IOU_T))
     return cases
 
 

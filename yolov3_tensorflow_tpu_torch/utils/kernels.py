@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -38,25 +39,42 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
+def build_kernels(*names: str) -> Dict[str, Path]:
+    """Compile csrc/<name>.cu for each name whose library does not exist
+    yet: one nvcc per source, all started together, each one's output
+    (register and shared-memory use, from -Xptxas=-v) kept in
+    `<library>.log`. Waits for every compiler it started, then raises if
+    any failed. Returns each name's library path."""
+    outs: Dict[str, Path] = {}
+    started = []
+    for name in names:
+        src = (CSRC / f"{name}.cu").read_bytes()
+        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        out = outs[name] = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = out.with_suffix(".so.log")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        started.append((name, proc, tmp, out, log))
+    failed = []
+    for name, proc, tmp, out, log in started:
+        if proc.wait() != 0:
+            failed.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
+                          f"{log.read_text()[-4000:]}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build_kernel(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library exists. The compiler's
-    output (register and shared-memory use, from -Xptxas=-v) is kept in
-    `<library>.log`. Returns the library's path."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)      # atomic: a concurrent build never sees half
-    return out
+    """`build_kernels` for one source. Returns the library's path."""
+    return build_kernels(name)[name]
 
 
 @functools.lru_cache(maxsize=None)
