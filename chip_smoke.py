@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. checks: a CUDA device is present; prints the card's name and power limit
    (nvidia-smi) and the toolchain.
-2. build: compiles both NMS kernels (csrc/nms_shared.cu and csrc/nms.cu)
-   from the sources in this checkout, one nvcc each, started together;
-   prints the build time and ptxas's register and spill lines.
+2. build: compiles all four kernels (csrc/nms_shared.cu, csrc/nms.cu,
+   csrc/mma_rate.cu and csrc/patch_build.cu) from the sources in this
+   checkout, one nvcc each, started together; prints the build time and
+   ptxas's register and spill lines.
 3. kernels against their plain versions, bit for bit: the shared-candidate
    kernel on the case list of yolov3_tensorflow_tpu_torch.testing.nms_cases
    (random sets at K in {8, 64, 256} x C in {6, 20, 80}, K=200 and K=1024,
@@ -55,8 +56,24 @@ Phases, in order; any failure exits non-zero before the last line:
    detector at batch 8 in both configs and its stages at the eval config;
    each kernel against its plain version on its path's own candidates
    (B=128, K=64, C=80; G=640, K=1024), timed twice in turns.
-9. prints the kernel record and the device record as JSON; the last line is
-   {"ok": true, "device": {...}}.
+9. probes (scripts/exp_mxu_shapes.py): the tensor-core chain (K3) against
+   its plain version at each of the 10 stem shapes (M 16384, reps 64),
+   max|kernel - plain| / max|plain| <= 1e-4 (tensor-core fp32 sums are
+   not ordered as torch.matmul's); the patch build (K4) against its plain
+   version bit for bit at c in {32, 64, 128} (M 65536). Then the probes'
+   own run (`run`: the bf16 torch.matmul peak, each shape at reps 64 and
+   128, each width), with every shape's TF/s and GB/s printed: the reps
+   128 / reps 64 time ratio must lie in [1.7, 2.3] and no shape may read
+   above 1.05x the measured peak (an impossible reading means a collapsed
+   chain). Each kernel against its plain version, timed in turns.
+10. roofline: the stage profile (scripts/profile_stages.py) at batch 128,
+   whose copy probe gives the bandwidth; the roofline
+   (scripts/roofline.py) of the batch-128 416^2 forward from the measured
+   matmul peak and the better copy bandwidth; the packed detector's
+   batch-128 ms/batch of phase 8 as a share of its bound (it must be
+   under 1); the stage table.
+11. prints the kernel record and the device record as JSON; the last line
+   is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -85,7 +102,16 @@ KERNELS = {
                    "yolov3_tensorflow_tpu/ops/nms_pallas.py:115"),
     "nms": ("yolov3_tensorflow_tpu_torch/csrc/nms.cu",
             "yolov3_tensorflow_tpu/ops/nms_pallas.py:36"),
+    "mma_rate": ("yolov3_tensorflow_tpu_torch/csrc/mma_rate.cu",
+                 "scripts/exp_mxu_shapes.py:44"),
+    "patch_build": ("yolov3_tensorflow_tpu_torch/csrc/patch_build.cu",
+                    "scripts/exp_mxu_shapes.py:121"),
 }
+K3_RTOL = 1e-4                         # max|kernel - plain| / max|plain|
+K3_RATIO = (1.7, 2.3)                  # time(2 x reps) / time(reps)
+K3_RECORD = "ctrl 512x512"             # K3's shape in the kernel record
+K4_RECORD = 128                        # K4's width in the kernel record
+ROOF_BATCH = 128                       # batch of the roofline and profile
 
 
 def fail(msg: str) -> None:
@@ -95,6 +121,12 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def check_no_jax() -> None:
+    jaxy = [m for m in sys.modules if m.split(".")[0] in
+            ("jax", "yolov3_tensorflow_tpu")]
+    check(not jaxy, f"the port imported jax or the JAX package: {jaxy}")
 
 
 def card_line() -> str:
@@ -214,6 +246,119 @@ def same_detections(a, b, min_score: float, what: str) -> None:
     check(f1 == n1 and f2 == n2, f"{what}: detections differ")
 
 
+def probe_phase(dev: torch.device, card: str, launches: dict, max_err: dict,
+                kernel_ms: dict) -> float:
+    """Phase 9: K3 and K4 against their plain versions, the probes' own run
+    (counted), and each kernel against its plain version in turns. Fills
+    the three records' entries for both kernels; returns the measured bf16
+    matmul peak (TF/s)."""
+    from yolov3_tensorflow_tpu_torch.scripts import exp_mxu_shapes as probes
+    checked = {}
+    max_err["mma_rate"] = max_err["patch_build"] = 0.0
+    for name, k, n in probes.SHAPES:
+        a, b = probes.mma_operands(probes.M_TOTAL, k, n, dev)
+        got = probes.mma_chain(a, b, probes.REPS)
+        want = probes.mma_chain_reference(a, b, probes.REPS)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        max_err["mma_rate"] = max(max_err["mma_rate"], err)
+        print(f"mma_rate {name.strip()}: M={probes.M_TOTAL} K={k} N={n} "
+              f"reps={probes.REPS} max|kernel-plain| {err:.6g}, relative "
+              f"{rel:.3g} (limit {K3_RTOL})")
+        check(rel <= K3_RTOL, f"mma_rate differs from its plain version at "
+                              f"{name.strip()}: relative {rel:.3g}")
+        checked[name.strip()] = (a, b)
+    for c in probes.WIDTHS:
+        x = probes.patch_operand(probes.PATCH_M, c, dev)
+        got = probes.concat_patches(x)
+        want = probes.concat_patches_reference(x)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"patch_build c={c}: M={probes.PATCH_M} -> "
+              f"{tuple(got.shape)}, kernel == plain: {same}")
+        check(same, f"patch_build differs from its plain version at c={c}")
+        checked[c] = x
+
+    probes.mma_chain.launches = 0
+    probes.concat_patches.launches = 0
+    t0 = time.perf_counter()
+    pres = probes.run(dev)
+    wall = time.perf_counter() - t0
+    launches["mma_rate"] = probes.mma_chain.launches
+    launches["patch_build"] = probes.concat_patches.launches
+    for line in probes.report(pres):
+        print(f"{line} [{card}]")
+    print(f"probes: run in {wall:.2f} s wall; mma_rate launches "
+          f"{launches['mma_rate']}, patch_build launches "
+          f"{launches['patch_build']}")
+    check(launches["mma_rate"] > 0 and launches["patch_build"] > 0,
+          "the probes did not launch both kernels")
+    peak = pres["peak_tflops"]
+    for r in pres["mma"]:
+        check(K3_RATIO[0] <= r["ratio"] <= K3_RATIO[1],
+              f"mma_rate {r['name']}: 2x reps took {r['ratio']:.3f}x the "
+              f"time, outside {K3_RATIO}")
+        check(r["tflops"] <= 1.05 * peak,
+              f"mma_rate {r['name']}: {r['tflops']:.1f} TF/s is over 1.05x "
+              f"the measured peak {peak:.1f}: a collapsed chain")
+
+    for name, k, n in probes.SHAPES:
+        a, b = checked[name.strip()]
+        k_ms, p_ms, k_runs, p_runs = in_turns(
+            lambda: probes.mma_chain(a, b, probes.REPS),
+            lambda: probes.mma_chain_reference(a, b, probes.REPS), 10, 2)
+        if name.strip() == K3_RECORD:
+            kernel_ms["mma_rate"] = (k_ms, p_ms)
+        print(f"mma_rate {name.strip()} K={k} N={n}: kernel {k_ms:.4f} ms "
+              f"(runs {k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch "
+              f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) "
+              f"[{card}]")
+    for c in probes.WIDTHS:
+        x = checked[c]
+        k_ms, p_ms, k_runs, p_runs = in_turns(
+            lambda: probes.concat_patches(x),
+            lambda: probes.concat_patches_reference(x), 50, 20)
+        if c == K4_RECORD:
+            kernel_ms["patch_build"] = (k_ms, p_ms)
+        print(f"patch_build c={c}: kernel {k_ms:.4f} ms (runs "
+              f"{k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch {p_ms:.4f} "
+              f"ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) [{card}]")
+    del checked
+    return peak
+
+
+def roofline_phase(dev: torch.device, card: str, variables: dict,
+                   packed_ms: float, peak: float) -> None:
+    """Phase 10: the stage profile at batch 128 (its copy probe gives the
+    bandwidth), the roofline of the batch-128 forward from the two measured
+    constants, the packed detector's measured ms/batch (`packed_ms`) as a
+    share of its bound, and the stage table."""
+    from yolov3_tensorflow_tpu_torch.scripts import profile_stages, roofline
+    t0 = time.perf_counter()
+    prof = profile_stages.profile(variables, ROOF_BATCH, (SIZE, SIZE),
+                                  device=dev)
+    prof_wall = time.perf_counter() - t0
+    hbm = max(gbs for _, _, gbs in prof["copy"])
+    print(f"roofline constants: bf16 matmul peak {peak:.1f} TF/s "
+          f"(torch.matmul 8192^3), bandwidth {hbm:.1f} GB/s (the better "
+          f"copy probe at batch {ROOF_BATCH}) [{card}]")
+    bound = roofline.roofline(ROOF_BATCH, (SIZE, SIZE), peak, hbm)
+    for line in roofline.report(bound, ROOF_BATCH, (SIZE, SIZE),
+                                measured_ms=packed_ms):
+        print(line)
+    share = bound["t_bound"] * 1e3 / packed_ms
+    print(f"packed detector batch {ROOF_BATCH}: {packed_ms:.3f} ms/batch "
+          f"measured (phase 8), bound {bound['t_bound'] * 1e3:.3f} ms: "
+          f"{share * 100:.1f}% of the bound [{card}]")
+    check(0.0 < share < 1.0, f"the detector read {share:.2f} of its lower "
+                             f"bound: the measurement or the bound is wrong")
+    print(f"stage profile at batch {ROOF_BATCH} ({prof_wall:.1f} s wall) "
+          f"[{card}]:")
+    for line in profile_stages.report(prof, ROOF_BATCH):
+        print(f"  {line}")
+
+
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -241,9 +386,7 @@ def main() -> int:
     from yolov3_tensorflow_tpu_torch.utils import kernels
     from yolov3_tensorflow_tpu_torch.utils.weights import (
         load_darknet_weights, save_darknet_weights)
-    jaxy = [m for m in sys.modules if m.split(".")[0] in
-            ("jax", "yolov3_tensorflow_tpu")]
-    check(not jaxy, f"the port imported jax or the JAX package: {jaxy}")
+    check_no_jax()
 
     dev = torch.device("cuda", 0)
     cpu = torch.device("cpu")
@@ -532,7 +675,14 @@ def main() -> int:
           f"{k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch {p_ms:.4f} ms "
           f"(runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) [{card}]")
 
-    # ---- 9. records ------------------------------------------------------
+    # ---- 9. probes: K3 and K4 --------------------------------------------
+    peak = probe_phase(dev, card, launches, max_err, kernel_ms)
+
+    # ---- 10. roofline ----------------------------------------------------
+    roofline_phase(dev, card, variables, timings[ROOF_BATCH], peak)
+    check_no_jax()
+
+    # ---- 11. records -----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

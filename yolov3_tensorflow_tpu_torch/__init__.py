@@ -18,6 +18,11 @@ reference's module names so that each counterpart is easy to find:
   PyTorch versions beside them
 - `utils.weights`: darknet `.weights` import and export
 - `utils.kernels`: builds the CUDA sources at first use
+- `utils.profiling`: step timer, CUDA-event timing, torch.profiler traces
+- `scripts.exp_mxu_shapes`: the tensor-core chain and patch-build probes,
+  hand-written CUDA kernels (`csrc/mma_rate.cu`, `csrc/patch_build.cu`)
+  with their plain versions; `scripts.roofline`: the per-layer roofline
+  from measured constants; `scripts.profile_stages`: the stage profiler
 
 The package imports torch and numpy, never jax. Every function takes its
 device from its tensors or from an explicit `device` argument.
