@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: compiles all four kernels (csrc/nms_shared.cu, csrc/nms.cu,
    csrc/mma_rate.cu and csrc/patch_build.cu) from the sources in this
    checkout, one nvcc each, started together; prints the build time and
-   ptxas's register and spill lines.
+   ptxas's register and spill lines, and the HGMMA and HMMA instruction
+   counts of the tensor-core chain's library (cuobjdump -sass): it must run
+   on wgmma (HGMMA) and hold no mma.sync (HMMA).
 3. kernels against their plain versions, bit for bit: the shared-candidate
    kernel on the case list of yolov3_tensorflow_tpu_torch.testing.nms_cases
    (random sets at K in {8, 64, 256} x C in {6, 20, 80}, K=200 and K=1024,
@@ -40,7 +42,8 @@ Phases, in order; any failure exits non-zero before the last line:
    [8, 80*150, ...], detections in every image, the per-group kernel
    launched once per request, and on the exact path's own candidates
    (G = 8*80 = 640 groups, K = 1024) its keep masks must equal the plain
-   version's. Then at the demo config (max_out 200, pre_topk 256, score
+   version's; prints the valid and kept candidates per group (mean and
+   max). Then at the demo config (max_out 200, pre_topk 256, score
    0.3, iou 0.45) the fp32 exact detector on the GPU and on the CPU must
    find the same detections on 2 images, both ways.
 7. prefilter path: build_detector(mode="prefilter") at the demo config,
@@ -54,6 +57,9 @@ Phases, in order; any failure exits non-zero before the last line:
 8. timings (CUDA events, after warm-up): img/s of the packed detector at
    batch 8 and 128 and its stages at batch 128; ms per batch of the exact
    detector at batch 8 in both configs and its stages at the eval config;
+   beside each detector's ms per batch, the device's busy time per batch
+   (utils.profiling.device_busy_ms, torch.profiler): the difference is
+   time the device waited for the host;
    each kernel against its plain version on its path's own candidates
    (B=128, K=64, C=80; G=640, K=1024), timed twice in turns.
 9. probes (scripts/exp_mxu_shapes.py): the tensor-core chain (K3) against
@@ -65,7 +71,9 @@ Phases, in order; any failure exits non-zero before the last line:
    128, each width), with every shape's TF/s and GB/s printed: the reps
    128 / reps 64 time ratio must lie in [1.7, 2.3] and no shape may read
    above 1.05x the measured peak (an impossible reading means a collapsed
-   chain). Each kernel against its plain version, timed in turns.
+   chain). Each kernel against its plain version, timed in turns, and K3
+   against its library yardstick: `reps` back-to-back torch.mm on its
+   operands (fp32 output where torch.mm takes out_dtype), TF/s of both.
 10. roofline: the stage profile (scripts/profile_stages.py) at batch 128,
    whose copy probe gives the bandwidth; the roofline
    (scripts/roofline.py) of the batch-128 416^2 forward from the measured
@@ -73,7 +81,11 @@ Phases, in order; any failure exits non-zero before the last line:
    batch-128 ms/batch of phase 8 as a share of its bound (it must be
    under 1); the stage table.
 11. prints the kernel record and the device record as JSON; the last line
-   is {"ok": true, "device": {...}}.
+   is {"ok": true, "device": {...}}. Each kernel's record carries its bound
+   (scripts/roofline.py: the published H100 SXM peaks, from this run's
+   inputs: K2 counts the IoU tests its candidates need) and its library
+   yardstick's ms (null where no single PyTorch call computes the same
+   function).
 """
 
 from __future__ import annotations
@@ -247,12 +259,13 @@ def same_detections(a, b, min_score: float, what: str) -> None:
 
 
 def probe_phase(dev: torch.device, card: str, launches: dict, max_err: dict,
-                kernel_ms: dict) -> float:
+                kernel_ms: dict, bounds: dict, library: dict) -> float:
     """Phase 9: K3 and K4 against their plain versions, the probes' own run
-    (counted), and each kernel against its plain version in turns. Fills
-    the three records' entries for both kernels; returns the measured bf16
-    matmul peak (TF/s)."""
+    (counted), each kernel against its plain version in turns and K3
+    against its library yardstick. Fills the five records' entries for
+    both kernels; returns the measured bf16 matmul peak (TF/s)."""
     from yolov3_tensorflow_tpu_torch.scripts import exp_mxu_shapes as probes
+    from yolov3_tensorflow_tpu_torch.scripts import roofline
     checked = {}
     max_err["mma_rate"] = max_err["patch_build"] = 0.0
     for name, k, n in probes.SHAPES:
@@ -303,27 +316,42 @@ def probe_phase(dev: torch.device, card: str, launches: dict, max_err: dict,
               f"mma_rate {r['name']}: {r['tflops']:.1f} TF/s is over 1.05x "
               f"the measured peak {peak:.1f}: a collapsed chain")
 
+    out_dtype = probes.library_out_dtype(dev)
+    print(f"mma_rate library yardstick: {probes.REPS} back-to-back torch.mm, "
+          f"{str(out_dtype).replace('torch.', '')} output")
     for name, k, n in probes.SHAPES:
         a, b = checked[name.strip()]
         k_ms, p_ms, k_runs, p_runs = in_turns(
             lambda: probes.mma_chain(a, b, probes.REPS),
             lambda: probes.mma_chain_reference(a, b, probes.REPS), 10, 2)
+        lib_ms = probes.library_ms(a, b, probes.REPS, out_dtype)
+        bound = roofline.bound_mma_chain(probes.M_TOTAL, k, n, probes.REPS)
         if name.strip() == K3_RECORD:
             kernel_ms["mma_rate"] = (k_ms, p_ms)
+            bounds["mma_rate"], library["mma_rate"] = bound, lib_ms
+        tf = 2.0 * probes.M_TOTAL * k * n * probes.REPS / 1e9
         print(f"mma_rate {name.strip()} K={k} N={n}: kernel {k_ms:.4f} ms "
-              f"(runs {k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch "
-              f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) "
-              f"[{card}]")
+              f"(runs {k_runs[0]:.4f}, {k_runs[1]:.4f}) {tf / k_ms:.1f} "
+              f"TF/s, torch.mm {lib_ms:.4f} ms {tf / lib_ms:.1f} TF/s, plain "
+              f"PyTorch {p_ms:.4f} ms (runs {p_runs[0]:.4f}, "
+              f"{p_runs[1]:.4f}); bound {bound[0]:.4f} ms ({bound[1]}): "
+              f"{bound[0] / k_ms * 100:.1f}% [{card}]")
     for c in probes.WIDTHS:
         x = checked[c]
         k_ms, p_ms, k_runs, p_runs = in_turns(
             lambda: probes.concat_patches(x),
             lambda: probes.concat_patches_reference(x), 50, 20)
+        bound = roofline.bound_patch_build(probes.PATCH_M, c, probes.TAPS)
         if c == K4_RECORD:
             kernel_ms["patch_build"] = (k_ms, p_ms)
+            # the plain version is one torch.cat of 9 strided views: the
+            # single library call that computes the same function
+            bounds["patch_build"], library["patch_build"] = bound, p_ms
         print(f"patch_build c={c}: kernel {k_ms:.4f} ms (runs "
-              f"{k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch {p_ms:.4f} "
-              f"ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) [{card}]")
+              f"{k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch (torch.cat) "
+              f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}); bound "
+              f"{bound[0]:.4f} ms ({bound[1]}): {bound[0] / k_ms * 100:.1f}% "
+              f"[{card}]")
     del checked
     return peak
 
@@ -381,9 +409,11 @@ def main() -> int:
     from yolov3_tensorflow_tpu_torch.ops.nms import (compact_per_class,
                                                      select_per_class)
     from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.scripts import roofline
     from yolov3_tensorflow_tpu_torch.testing import (bench_case, nms_cases,
                                                      per_class_cases)
     from yolov3_tensorflow_tpu_torch.utils import kernels
+    from yolov3_tensorflow_tpu_torch.utils.profiling import device_busy_ms
     from yolov3_tensorflow_tpu_torch.utils.weights import (
         load_darknet_weights, save_darknet_weights)
     check_no_jax()
@@ -410,6 +440,11 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if any(w in line for w in ("registers", "spill", "Compiling")):
                     print(f"  ptxas: {line.strip()}")
+    sass = kernels.sass_counts(libs["mma_rate"])
+    print(f"mma_rate machine code: {sass['HGMMA']} HGMMA (wgmma), "
+          f"{sass['HMMA']} HMMA (mma.sync)")
+    check(sass["HGMMA"] > 0 and sass["HMMA"] == 0,
+          f"mma_rate must run on wgmma alone, got {sass}")
 
     # ---- 3. kernels against their plain versions -------------------------
     cases = nms_cases(batch=16, seed=1) + [bench_case(seed=2)]
@@ -533,6 +568,12 @@ def main() -> int:
         gboxes, gvalid = top_boxes.reshape(b * C, k, 4), valid.reshape(b * C, k)
         max_err["nms"] = max(max_err["nms"], keep_mask_error(
             gboxes, gvalid, EVAL["iou_thresh"], "exact-path candidates"))
+        nv = gvalid.sum(1).float()
+        nk = nms_cuda.nms_keep_mask_reference(
+            gboxes, gvalid, EVAL["iou_thresh"]).sum(1).float()
+    print(f"nms inputs at the eval shape: valid per group mean "
+          f"{float(nv.mean()):.1f} max {int(nv.max())}, kept per group mean "
+          f"{float(nk.mean()):.1f} max {int(nk.max())} (of K={k})")
 
     # fp32 on the GPU against fp32 on the CPU, 2 images, demo config
     g32 = build_detector(loaded, anchors, C, (SIZE, SIZE), device=dev,
@@ -604,8 +645,10 @@ def main() -> int:
             det(images)
         ms = cuda_ms(lambda: det(images), iters)
         timings[b] = ms
+        busy = device_busy_ms(lambda: det(images), 5)
         print(f"packed detector batch {b}: {ms:.3f} ms/batch, "
-              f"{b * 1000.0 / ms:.1f} img/s [{card}]")
+              f"{b * 1000.0 / ms:.1f} img/s; device busy {busy:.3f} "
+              f"ms/batch [{card}]")
 
     with torch.inference_mode():
         images = batches[-1]
@@ -625,9 +668,13 @@ def main() -> int:
         lambda: nms_cuda.nms_keep_mask_shared_reference(boxes_p, scores_p,
                                                         0.3, 0.45), 200, 5)
     kernel_ms = {"nms_shared": (k_ms, p_ms)}
+    bounds = {"nms_shared": roofline.bound_nms_shared(*scores_p.shape)}
+    library = {"nms_shared": None, "nms": None}     # no single torch call
     print(f"nms_shared keep masks B=128 K=64 C=80: kernel {k_ms:.4f} ms "
           f"(runs {k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch "
-          f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) [{card}]")
+          f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}); bound "
+          f"{bounds['nms_shared'][0]:.4f} ms ({bounds['nms_shared'][1]}): "
+          f"{bounds['nms_shared'][0] / k_ms * 100:.1f}% [{card}]")
 
     images = batches[0]
     for name, cfg in (("eval", EVAL), ("demo", DEMO)):
@@ -637,9 +684,11 @@ def main() -> int:
         for _ in range(3):
             d(images)
         ms = cuda_ms(lambda: d(images), 10)
+        busy = device_busy_ms(lambda: d(images), 5)
         print(f"exact detector batch 8, {name} config (pre_topk "
               f"{cfg['pre_topk']}, score {cfg['score_thresh']}): {ms:.3f} "
-              f"ms/batch, {8 * 1000.0 / ms:.1f} img/s [{card}]")
+              f"ms/batch, {8 * 1000.0 / ms:.1f} img/s; device busy "
+              f"{busy:.3f} ms/batch [{card}]")
 
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: yolov3_forward_folded(
@@ -671,12 +720,18 @@ def main() -> int:
         lambda: nms_cuda.nms_keep_mask_reference(gboxes, gvalid,
                                                  EVAL["iou_thresh"]), 20, 2)
     kernel_ms["nms"] = (k_ms, p_ms)
+    pairs = roofline.nms_pairs(gvalid, nms_cuda.nms_keep_mask_reference(
+        gboxes, gvalid, EVAL["iou_thresh"]))
+    bounds["nms"] = roofline.bound_nms(b * C, k, pairs)
     print(f"nms keep masks G={b * C} K={k}: kernel {k_ms:.4f} ms (runs "
           f"{k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch {p_ms:.4f} ms "
-          f"(runs {p_runs[0]:.4f}, {p_runs[1]:.4f}) [{card}]")
+          f"(runs {p_runs[0]:.4f}, {p_runs[1]:.4f}); {pairs} IoU tests "
+          f"needed, bound {bounds['nms'][0]:.4f} ms ({bounds['nms'][1]}): "
+          f"{bounds['nms'][0] / k_ms * 100:.1f}% [{card}]")
 
     # ---- 9. probes: K3 and K4 --------------------------------------------
-    peak = probe_phase(dev, card, launches, max_err, kernel_ms)
+    peak = probe_phase(dev, card, launches, max_err, kernel_ms, bounds,
+                       library)
 
     # ---- 10. roofline ----------------------------------------------------
     roofline_phase(dev, card, variables, timings[ROOF_BATCH], peak)
@@ -687,7 +742,8 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": max_err[name], "ms": kernel_ms[name][0],
-        "plain_ms": kernel_ms[name][1]}
+        "plain_ms": kernel_ms[name][1], "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": library[name]}
         for name, (source, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

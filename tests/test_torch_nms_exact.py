@@ -8,8 +8,10 @@ list that chip_smoke.py also runs on the card; the port's `batched_nms`
 and `batched_nms_kernel` equal the JAX `batched_nms` and
 `batched_nms_pallas` (interpret mode): `valid` and `labels` exactly,
 `scores` and `boxes` to rtol 1e-6 (the same float32 values gathered, so in
-practice equal). The `cuda` test holds the CUDA kernel to the plain version
-on the card.
+practice equal). `keep_mask_by_blocks`, the CUDA kernel's decision order in
+PyTorch, equals JAX's `suppression_mask` bit for bit on the same cases. The
+`cuda` test holds the CUDA kernel to the plain version on the card, on the
+case list and on the exact path's own candidates at G = 640, K = 1024.
 
 JAX is imported inside a fixture, not at the top: the GPU machine has no
 jax, and there this file runs its `cuda` test alone
@@ -22,10 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+from yolov3_tensorflow_tpu_torch.ops.boxes import iou_xyxy
 from yolov3_tensorflow_tpu_torch.ops.nms import (batched_nms,
                                                  batched_nms_auto, cpu_nms,
                                                  per_class_nms, py_nms)
 from yolov3_tensorflow_tpu_torch.ops.nms_cuda import (batched_nms_kernel,
+                                                      keep_mask_by_blocks,
                                                       nms_keep_mask,
                                                       nms_keep_mask_reference)
 from yolov3_tensorflow_tpu_torch.testing import per_class_cases
@@ -127,6 +131,44 @@ def test_reference_matches_suppression_mask_and_oracle(name, jref):
     _check_shape_of_result(name, case, got)
 
 
+@pytest.mark.parametrize("block", [32, 7])
+@pytest.mark.parametrize("name", sorted(CASES) + ["random_k1024"])
+def test_kernel_decision_order_matches_suppression_mask(name, block, jref):
+    """The CUDA kernel's order (decide a block of rows, then let only its
+    kept rows remove from later blocks), modelled in PyTorch at the
+    kernel's block of 32 and at an odd block, equals the greedy."""
+    import jax.numpy as jnp
+    case = CASES.get(name) or per_class_cases(groups=2, ks=(1024,),
+                                              seed=5)[0]
+    boxes, valid = torch.from_numpy(case.boxes), torch.from_numpy(case.valid)
+    got = keep_mask_by_blocks(boxes, valid, case.iou_thresh, block=block)
+    want = np.asarray(jref.suppression(jnp.asarray(case.boxes),
+                                       jnp.asarray(case.valid),
+                                       case.iou_thresh))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, nms_keep_mask_reference(boxes, valid,
+                                                    case.iou_thresh))
+
+
+def test_zero_intersection_never_passes_a_threshold():
+    """The kernel skips the division where the intersection is 0 and
+    t >= 0: the plain IoU of every such pair, zero-area, touching, apart
+    or NaN-free degenerate, is +-0 or NaN, never > t."""
+    rng = np.random.default_rng(6)
+    x0, y0 = rng.integers(0, 20, (2, 4000)).astype(np.float32)
+    w, h = rng.integers(0, 6, (2, 4000)).astype(np.float32)
+    boxes = torch.from_numpy(np.stack([x0, y0, x0 + w, y0 + h], -1))
+    a, b = boxes[:2000], boxes[2000:]
+    iou = iou_xyxy(a, b)
+    mins = torch.maximum(a[:, None, :2], b[None, :, :2])
+    maxs = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = torch.clamp(maxs - mins, min=0.0)
+    zero = wh[..., 0] * wh[..., 1] == 0
+    assert zero.float().mean() > 0.5 and (~zero).any()
+    for t in (0.0, 0.45, 0.9):
+        assert not (iou[zero] > t).any()
+
+
 def _scored_boxes(seed: int, b: int = 2, a: int = 300, c: int = 4):
     rng = np.random.default_rng(seed)
     x0, y0 = rng.uniform(0, 300, (2, b, a))
@@ -207,6 +249,13 @@ def test_cuda_kernel_matches_plain_version():
         assert nms_keep_mask.launches == before + 1
         want = nms_keep_mask_reference(boxes, valid, case.iou_thresh)
         assert torch.equal(got, want), case.name
+    # the exact path's own candidates at the eval config: G = 640, K = 1024
+    from yolov3_tensorflow_tpu_torch.scripts.compare_revisions import \
+        eval_candidates
+    cand = eval_candidates(dev)
+    got = nms_keep_mask(cand["boxes"], cand["valid"], 0.45)
+    assert cand["boxes"].shape == (640, 1024, 4)
+    assert torch.equal(got, cand["keep"])
     with pytest.raises(ValueError, match="K <= 1024"):
         nms_keep_mask(torch.zeros((1, 1025, 4), device=dev),
                       torch.ones((1, 1025), dtype=torch.bool, device=dev),

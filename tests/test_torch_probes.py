@@ -19,6 +19,7 @@ is imported inside a fixture, and the GPU machine has none).
 
 import functools
 import importlib.util
+import types
 from pathlib import Path
 
 import numpy as np
@@ -131,7 +132,7 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_wrappers_reject_tensors_off_cpu_and_cuda():
-    a = torch.zeros((64, 16), dtype=torch.bfloat16, device="meta")
+    a = torch.zeros((128, 16), dtype=torch.bfloat16, device="meta")
     b = torch.zeros((16, 32), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         probes.mma_chain(a, b, 2)
@@ -148,25 +149,60 @@ def test_plain_patch_build_rejects_windows_outside_the_block():
         probes.concat_patches_reference(x, taps=9, mt=48)
 
 
+def _strip_bytes(splits: int, kc: int) -> int:
+    """A [128, kc] and B [kc, 64] bf16, or with a K split at least the
+    leader's view of one partner's totals (32 floats a thread)."""
+    strips = (probes.TILE_M + probes.TILE_N) * kc * 2
+    return max(strips, 32 * 256 * 4) if splits > 1 else strips
+
+
 @pytest.mark.parametrize("name,k,n", probes.SHAPES)
 def test_every_stem_shape_has_a_tile_that_fits(name, k, n):
-    bn, smem = probes.mma_tile(k, n)
-    assert n % bn == 0 and smem <= probes.SMEM_LIMIT
-    kp = -(-k // 16) * 16
-    assert smem == 2 * (probes.TILE_M * (kp + 8) + kp * (bn + 8))
-    # the widest tile that fits: the next wider one divides n but overflows
-    wider = [t for t in probes.TILES_N if t > bn and n % t == 0]
-    for t in wider:
-        assert 2 * (probes.TILE_M * (kp + 8) + kp * (t + 8)) \
-            > probes.SMEM_LIMIT, name
+    tile = probes.mma_tile(k, n)
+    assert n % probes.TILE_N == 0
+    assert tile.smem <= probes.SMEM_LIMIT
+    assert tile.smem == _strip_bytes(tile.splits, tile.kc) + 1024
+    # pass and total: 2 x 32 fp32 accumulators of a 64 x 64 warpgroup tile
+    assert tile.regs == 64 < probes.REG_LIMIT
+    # the splits cover K, each CTA gets some, in 64-wide rows
+    assert tile.kc % 64 == 0 and tile.kc * tile.splits >= k
+    assert (tile.splits - 1) * tile.kc < k
+    # the fewest splits: one split fewer overflows shared memory
+    for s in probes.SPLITS_K:
+        if s < tile.splits:
+            kc = -(-k // (64 * s)) * 64
+            assert _strip_bytes(s, kc) + 1024 > probes.SMEM_LIMIT, name
+    # only K = 1024 needs a cluster: 384 bytes of strips per K element
+    assert tile.splits == (2 if k == 1024 else 1)
 
 
 def test_tile_choice_refuses_what_no_tile_fits():
-    assert probes.mma_tile(1104, 32)[0] == 32
+    assert probes.mma_tile(576, 64) == (1, 576, 222208, 64)
+    assert probes.mma_tile(577, 64) == (2, 320, 123904, 64)
+    assert probes.mma_tile(2304, 64) == (4, 576, 222208, 64)
     with pytest.raises(ValueError):
-        probes.mma_tile(1105, 32)
+        probes.mma_tile(2305, 64)          # past four CTAs' shared memory
     with pytest.raises(ValueError):
-        probes.mma_tile(128, 48)
+        probes.mma_tile(128, 32)           # narrower than a 64-wide row
+    with pytest.raises(ValueError):
+        probes.mma_tile(128, 96)
+
+
+def test_sass_counts_read_the_opcodes_off_cuobjdump(monkeypatch):
+    """The build check's HGMMA / HMMA counts, on lines as cuobjdump -sass
+    prints them (a predicate, an encoding line, a dotted opcode)."""
+    from yolov3_tensorflow_tpu_torch.utils import kernels
+    sass = "\n".join([
+        "        /*0000*/      MOV R1, c[0x0][0x28] ;   /* 0x00000a0000017a02 */",
+        "                                               /* 0x000fe20000000f00 */",
+        "        /*0090*/      HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ ;",
+        "        /*00a0*/      HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;",
+        "        /*00b0*/  @P0 HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "        /*00c0*/      WARPGROUP.ARRIVE ;"])
+    monkeypatch.setattr(kernels, "_cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(kernels.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=sass))
+    assert kernels.sass_counts(Path("lib.so")) == {"HGMMA": 2, "HMMA": 1}
 
 
 def test_measurements_need_a_gpu():
@@ -192,8 +228,11 @@ def test_cuda_mma_chain_matches_plain_version():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for k, n, reps in ((108, 128, 8), (1024, 128, 4), (40, 32, 3),
-                       (30, 64, 2)):
+    # every stem shape (K=108 by thread copies, K=1024 split over four
+    # CTAs), then odd widths: K=40 (TMA, zero-filled to 48), K=30 (thread
+    # copies element by element), K=2304 at the largest split
+    shapes = [(k, n, 8) for _, k, n in probes.SHAPES]
+    for k, n, reps in shapes + [(40, 64, 3), (30, 64, 2), (2304, 64, 2)]:
         a, b = probes.mma_operands(2 * probes.MT, k, n, dev)
         before = probes.mma_chain.launches
         got = probes.mma_chain(a, b, reps)
@@ -202,8 +241,18 @@ def test_cuda_mma_chain_matches_plain_version():
         want = probes.mma_chain_reference(a, b, reps)
         rel = float((got - want).abs().max() / want.abs().max())
         assert rel <= 1e-4, (k, n, rel)
-    with pytest.raises(ValueError, match="multiple of 64"):
+    with pytest.raises(ValueError, match="multiple of 128"):
         probes.mma_chain(a[:100], b, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_mma_chain_runs_on_wgmma():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yolov3_tensorflow_tpu_torch.utils.kernels import (build_kernel,
+                                                           sass_counts)
+    counts = sass_counts(build_kernel("mma_rate"))
+    assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, counts
 
 
 @pytest.mark.cuda

@@ -77,6 +77,18 @@ def test_cuda_ms_refuses_to_time_the_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         profiling.cuda_ms(lambda: None, 1)
+    with pytest.raises(RuntimeError):
+        profiling.device_busy_ms(lambda: None, 1)
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([], 0.0),
+    ([(0.0, 2.0), (5.0, 6.0)], 3.0),          # apart
+    ([(0.0, 4.0), (1.0, 2.0)], 4.0),          # one inside the other
+    ([(3.0, 7.0), (0.0, 4.0), (6.0, 9.0)], 9.0),   # chained, out of order
+])
+def test_device_busy_counts_overlapping_work_once(spans, want):
+    assert profiling.union_length(spans) == want
 
 
 @pytest.fixture(scope="module")

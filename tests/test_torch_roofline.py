@@ -13,6 +13,7 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 from yolov3_tensorflow_tpu_torch.models.yolov3 import _head_input_channels
 from yolov3_tensorflow_tpu_torch.scripts import roofline
@@ -83,6 +84,38 @@ def test_totals_per_image():
         <= s["t_flop"] + s["t_hbm"]
     assert s["t_flop"] == pytest.approx(s["flops"] / 1e15)
     assert s["t_hbm"] == pytest.approx(s["bytes"] / 3e12)
+
+
+def test_kernel_bounds_against_hand_numbers():
+    """Each kernel's bound at its path's shape, worked out by hand from the
+    published H100 SXM peaks (989 TF/s bf16, 67 TF/s fp32, 3.35 TB/s)."""
+    # K3 ctrl 512x512, M 16384, reps 64: 549.8 GF of bf16 products
+    ms, by = roofline.bound_mma_chain(16384, 512, 512, 64)
+    assert 2.0 * 16384 * 512 * 512 * 64 == pytest.approx(549.76e9, rel=1e-4)
+    assert (round(ms, 4), by) == (0.5559, "operations")
+    # K4 c=128, M 65536: 16.8 MB read + 148.6 MB of patches written
+    ms, by = roofline.bound_patch_build(65536, 128)
+    assert 2 * 65536 * 128 + 2 * 64 * 1008 * 9 * 128 == 165412864
+    assert (round(ms, 4), by) == (0.0494, "bytes")
+    # K2 at G=640, K=1024, every candidate valid and kept: K(K-1)/2 pairs
+    every = torch.ones((640, 1024), dtype=torch.bool)
+    pairs = roofline.nms_pairs(every, every)
+    assert pairs == 640 * 1024 * 1023 // 2 == 335216640
+    ms, by = roofline.bound_nms(640, 1024, pairs)
+    assert (round(ms, 4), by) == (0.0700, "operations")
+    assert 640 * 1024 * 18 / 3.35e12 * 1e3 == pytest.approx(0.0035, abs=1e-4)
+    # K1 at B=128, K=64, C=80: 3.4 MB, mostly the [B, K, C] scores
+    ms, by = roofline.bound_nms_shared(128, 64, 80)
+    assert (round(ms, 4), by) == (0.001, "bytes")
+
+
+def test_nms_pairs_counts_only_what_the_inputs_need():
+    valid = torch.tensor([[True, False, True, True, False]])
+    keep = torch.tensor([[True, False, False, True, False]])
+    # kept 0 meets valid 2 and 3; kept 3 meets no later valid candidate
+    assert roofline.nms_pairs(valid, keep) == 2
+    assert roofline.nms_pairs(valid, torch.zeros_like(keep)) == 0
+    assert roofline.nms_pairs(valid[:, :0], keep[:, :0]) == 0
 
 
 def test_main_refuses_to_run_without_the_constants(capsys):

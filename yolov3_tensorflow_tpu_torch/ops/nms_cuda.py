@@ -31,7 +31,8 @@ from yolov3_tensorflow_tpu_torch.ops.nms import (compact_per_class,
                                                  select_per_class,
                                                  suppression_mask)
 
-MAX_K = 1024   # the kernels keep K x K IoU>t bits in shared memory
+MAX_K = 1024   # K1 keeps K x K IoU>t bits in shared memory, K2 a row of
+               # at most 32 words of 32 candidates
 
 
 def nms_keep_mask_shared_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -177,6 +178,33 @@ def nms_keep_mask_reference(boxes: torch.Tensor, valid: torch.Tensor,
     the K ranks, vectorized over groups.
     """
     return suppression_mask(boxes, valid, iou_thresh)
+
+
+def keep_mask_by_blocks(boxes: torch.Tensor, valid: torch.Tensor,
+                        iou_thresh: float, block: int = 32) -> torch.Tensor:
+    """The per-group kernel's decision order (`csrc/nms.cu`) in plain
+    PyTorch, over the same IoU>t bits: boxes [G, K, 4], valid [G, K] ->
+    keep [G, K] bool.
+
+    Candidates are taken `block` at a time. Within a block the rows are
+    decided in order, each kept row removing the later rows of its block it
+    overlaps (its diagonal word); then the block's kept rows, and only
+    they, remove the candidates of every later block they overlap. Equal
+    to `suppression_mask`; the tests hold it there, as the only rehearsal
+    of the kernel's logic without a card."""
+    k = boxes.shape[-2]
+    over = iou_xyxy(boxes, boxes) > iou_thresh                  # [G, K, K]
+    removed = ~valid
+    keep = torch.zeros_like(valid)
+    for i0 in range(0, k, block):
+        i1 = min(i0 + block, k)
+        for i in range(i0, i1):
+            take = ~removed[:, i]
+            keep[:, i] = take
+            removed[:, i + 1:i1] |= take[:, None] & over[:, i, i + 1:i1]
+        later = (keep[:, i0:i1, None] & over[:, i0:i1, i1:]).any(dim=1)
+        removed[:, i1:] |= later
+    return keep
 
 
 def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor,

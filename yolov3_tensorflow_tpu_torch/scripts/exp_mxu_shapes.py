@@ -43,7 +43,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,26 +70,42 @@ WIDTHS = (32, 64, 128)
 TAPS = 9
 PEAK_SIZE = 8192         # M = N = K of the matmul peak
 
-TILE_M = 64              # csrc/mma_rate.cu kBM
-TILES_N = (128, 64, 32)  # the CTA widths mma_rate.cu is built for
+TILE_M = 128             # csrc/mma_rate.cu kBM: two warpgroups of 64 rows
+TILE_N = 64              # csrc/mma_rate.cu kBN: one 128-byte row of B
+TILE_K = 64              # K elements in one 128-byte swizzled row of A
+SPLITS_K = (1, 2, 4)     # CTAs of a cluster that split K
 SMEM_LIMIT = 232448      # bytes of shared memory one CTA may opt in to
+REG_LIMIT = 255          # registers a thread may hold
+THREADS = 256            # two warpgroups
 
 
-# ---------------------------------------------------------------------------
-# K3: the product chain
-# ---------------------------------------------------------------------------
+class MmaTile(NamedTuple):
+    splits: int          # CTAs of a cluster that split K (1: no split)
+    kc: int              # K elements each CTA stages, a multiple of TILE_K
+    smem: int            # dynamic shared memory bytes, alignment included
+    regs: int            # accumulator registers a thread: pass + total
 
-def mma_tile(k: int, n: int) -> Tuple[int, int]:
-    """K3's CTA tile for a [*, k] x [k, n] chain: (BN, shared-memory bytes),
-    BN the widest of TILES_N that divides n and whose A strip [64, k] and
-    B strip [k, BN] (k padded to a multiple of 16, rows padded by 16
-    bytes) fit in SMEM_LIMIT."""
-    kp = -(-k // 16) * 16
-    for bn in TILES_N:
-        smem = 2 * (TILE_M * (kp + 8) + kp * (bn + 8))
-        if n % bn == 0 and smem <= SMEM_LIMIT:
-            return bn, smem
-    raise ValueError(f"mma_chain takes n a multiple of 32 and k <= 1104, got "
+
+def mma_tile(k: int, n: int) -> MmaTile:
+    """K3's CTA tile for a [*, k] x [k, n] chain: 128 x 64 outputs (n must
+    be a multiple of 64), with the fewest K splits whose strips, A [128, kc]
+    and B [kc, 64] bf16 (kc = k / splits rounded up to TILE_K), fit
+    SMEM_LIMIT with 1024 bytes of alignment slack. With a split, the leader
+    reads the others' totals from their shared memory, so the strips' space
+    also holds a thread's 32 totals. The pass and the total take 64 of a
+    thread's REG_LIMIT registers. Raises on what no tile fits."""
+    regs = 2 * (TILE_M // 2 * TILE_N // 128)
+    if n % TILE_N == 0 and regs < REG_LIMIT:
+        for splits in SPLITS_K:
+            kc = -(-k // (TILE_K * splits)) * TILE_K
+            if (splits - 1) * kc >= k:           # a CTA would get no K
+                break
+            strips = (TILE_M + TILE_N) * kc * 2
+            if splits > 1:
+                strips = max(strips, regs // 2 * THREADS * 4)
+            if strips + 1024 <= SMEM_LIMIT:
+                return MmaTile(splits, kc, strips + 1024, regs)
+    raise ValueError(f"mma_chain takes n a multiple of 64 and k <= 2304, got "
                      f"k={k}, n={n}")
 
 
@@ -117,8 +133,8 @@ def mma_chain_reference(a: torch.Tensor, b: torch.Tensor, reps: int,
 def mma_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     """o [m, n] fp32 = sum over r < reps of a [m, k] . b [k, n], bf16 inputs.
 
-    CUDA tensors go to the hand-written kernel (m a multiple of 64, n of 32,
-    k <= 1104, contiguous 16-byte aligned inputs); CPU tensors to
+    CUDA tensors go to the hand-written kernel (m a multiple of 128, n of
+    64, k <= 2304, contiguous 16-byte aligned inputs); CPU tensors to
     `mma_chain_reference` (m a multiple of MT). Each kernel launch adds one
     to `mma_chain.launches`.
     """
@@ -138,14 +154,14 @@ def mma_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     if m % TILE_M or reps < 0:
         raise ValueError(f"mma_chain takes m a multiple of {TILE_M} and "
                          f"reps >= 0, got m={m}, reps={reps}")
-    bn, _ = mma_tile(k, n)
+    tile = mma_tile(k, n)
     if not (a.is_contiguous() and b.is_contiguous()) \
             or a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("mma_chain takes contiguous, 16-byte aligned a and b")
     o = torch.empty((m, n), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _mma_launcher()(a.data_ptr(), b.data_ptr(), o.data_ptr(), m, k, n,
-                          int(reps), bn, stream)
+                          int(reps), tile.splits, stream)
     if err != 0:
         raise RuntimeError(f"mma_rate kernel launch failed: CUDA error {err}")
     mma_chain.launches += 1
@@ -289,6 +305,36 @@ def matmul_peak(device: Optional[torch.device] = None) -> float:
 
 def _chain_ms(a: torch.Tensor, b: torch.Tensor, reps: int) -> float:
     return cuda_ms(lambda: mma_chain(a, b, reps), iters=30)
+
+
+def library_out_dtype(device: torch.device) -> torch.dtype:
+    """float32 where this torch's `torch.mm` takes bf16 operands with
+    `out_dtype=torch.float32` (K3's own output type), else bfloat16."""
+    x = torch.zeros((16, 16), dtype=torch.bfloat16, device=device)
+    try:
+        return torch.mm(x, x, out_dtype=torch.float32).dtype
+    except (TypeError, RuntimeError):
+        return torch.bfloat16
+
+
+def library_ms(a: torch.Tensor, b: torch.Tensor, reps: int,
+               out_dtype: torch.dtype) -> float:
+    """Device ms of `reps` back-to-back `torch.mm(a, b)` in `out_dtype`:
+    K3's products as library calls, on K3's operands, warm in L2 as K3
+    finds them. A yardstick beside K3 only; nothing of the port calls
+    it."""
+    if out_dtype == torch.float32:
+        def chain():
+            for _ in range(reps):
+                torch.mm(a, b, out_dtype=torch.float32)
+    else:
+        o = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype,
+                        device=a.device)
+
+        def chain():
+            for _ in range(reps):
+                torch.mm(a, b, out=o)
+    return cuda_ms(chain, iters=10)
 
 
 def mma_rate(m_total: int, k: int, n: int, reps: int = REPS,

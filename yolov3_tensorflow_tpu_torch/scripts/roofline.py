@@ -22,6 +22,14 @@ JAX script: the lateral 1x1 conv of the 13->26 junction reads the
 the constants are flags in TF/s and GB/s. The detection convs are counted
 at 3 * (5 + C) output channels, as the JAX script counts them.
 
+The `bound_*` functions give each hand-written kernel's bound at its
+shapes: the larger of the bytes it must move (each input read once, each
+output written once) over the card's memory rate and the operations it
+does over the card's peak rate for their type. They use the published
+H100 SXM peaks (`H100_PEAKS`, NVIDIA's data sheet, dense, at the full
+700 W), not measured constants, so a share of them is a share of what the
+card is sold to do.
+
 Usage:
 
     python -m yolov3_tensorflow_tpu_torch.scripts.roofline \\
@@ -34,12 +42,69 @@ from __future__ import annotations
 import argparse
 from typing import Dict, List, Tuple
 
+import torch
+
 from yolov3_tensorflow_tpu_torch.models.yolov3 import (BACKBONE_PLAN,
                                                        _head_input_channels,
                                                        head_plan)
 
 BYTES = 2               # bf16
 Row = Tuple[str, float, float]      # (label, flops, bytes)
+
+# published dense peaks of one H100 SXM: operations/s by type, bytes/s
+H100_PEAKS = {"bf16": 989e12, "fp32": 67e12, "hbm": 3.35e12}
+# fp32 operations of one IoU>t test in iou_xyxy's order: 2 min, 2 max,
+# 2 subtractions, 2 clamps at 0, the product, area_i + area_j, - inter,
+# + 1e-10, the division and the comparison
+IOU_OPS = 14
+
+
+def kernel_bound(ops: float, bytes_: float, kind: str) -> Tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time one H100 SXM takes to
+    move `bytes_` through device memory and do `ops` operations of `kind`
+    ("bf16" or "fp32"), and which of the two sets it."""
+    t_ops = ops / H100_PEAKS[kind]
+    t_bytes = bytes_ / H100_PEAKS["hbm"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bound_mma_chain(m: int, k: int, n: int, reps: int) -> Tuple[float, str]:
+    """K3: reps products a [m, k] . b [k, n] in bf16 (FLOPs at the true k),
+    a and b read once, the fp32 o [m, n] written once."""
+    return kernel_bound(2.0 * m * k * n * reps,
+                        2.0 * (m * k + k * n) + 4.0 * m * n, "bf16")
+
+
+def bound_patch_build(m: int, c: int, taps: int = 9, mt: int = 1024
+                      ) -> Tuple[float, str]:
+    """K4: x [m, c] bf16 read once, the [m / mt * (mt - 16), taps * c]
+    patches written once."""
+    return kernel_bound(0.0, 2.0 * m * c + 2.0 * (m // mt) * (mt - 16)
+                        * taps * c, "fp32")
+
+
+def nms_pairs(valid: torch.Tensor, keep: torch.Tensor) -> int:
+    """The IoU tests a greedy NMS over these inputs needs: for every kept
+    candidate, one test against each valid candidate ranked after it.
+    valid, keep [..., K] bool, rows in rank order."""
+    v = valid.to(torch.int64)
+    later = v.flip(-1).cumsum(-1).flip(-1) - v        # valid j > i
+    return int((later * keep.to(torch.int64)).sum())
+
+
+def bound_nms(g: int, k: int, pairs: int) -> Tuple[float, str]:
+    """K2: boxes [g, k, 4] fp32 and valid [g, k] read once, keep [g, k]
+    written once; `pairs` IoU tests (`nms_pairs`) of IOU_OPS fp32 ops."""
+    return kernel_bound(float(pairs) * IOU_OPS, g * k * (16.0 + 1 + 1),
+                        "fp32")
+
+
+def bound_nms_shared(b: int, k: int, c: int) -> Tuple[float, str]:
+    """K1: boxes [b, k, 4] and scores [b, k, c] fp32 read once, keep
+    [b, c, k] written once; one IoU test per candidate pair of an image."""
+    return kernel_bound(b * k * (k - 1) / 2.0 * IOU_OPS,
+                        b * k * 16.0 + b * k * c * 4.0 + b * c * k, "fp32")
 
 # the JAX script's names for the three scales (strides 32, 16, 8)
 _SCALES = ("13", "26", "52")

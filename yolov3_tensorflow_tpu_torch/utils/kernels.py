@@ -72,6 +72,32 @@ def build_kernels(*names: str) -> Dict[str, Path]:
     return outs
 
 
+def _cuobjdump() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "cuobjdump").exists():
+        return str(Path(CUDA_HOME) / "bin" / "cuobjdump")
+    raise RuntimeError("cuobjdump not found: it comes with the CUDA toolkit "
+                       "(on PATH or under CUDA_HOME)")
+
+
+def sass_counts(lib: Path, opcodes=("HGMMA", "HMMA")) -> Dict[str, int]:
+    """How many instructions of each opcode the library's machine code
+    (`cuobjdump -sass`) holds: HGMMA is Hopper's warpgroup product (wgmma),
+    HMMA the per-warp one (mma.sync)."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    heads = []
+    for line in sass.splitlines():
+        words = [w for w in line.split("*/", 1)[-1].split()
+                 if not w.startswith("@")]          # drop a predicate
+        if "*/" in line and words:
+            heads.append(words[0].split(".")[0])
+    return {op: heads.count(op) for op in opcodes}
+
+
 def build_kernel(name: str) -> Path:
     """`build_kernels` for one source. Returns the library's path."""
     return build_kernels(name)[name]

@@ -132,3 +132,36 @@ def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_busy_ms(fn: Callable[[], Any], iters: int) -> float:
+    """Mean milliseconds per call of fn() during which the GPU ran
+    something (kernels, copies): the union of the device intervals that
+    torch.profiler records over `iters` calls, after 3 untimed calls.
+    Beside a `cuda_ms` reading of a whole pipeline it shows how much of
+    the call the device waited for the host. Needs a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_busy_ms times the GPU: no CUDA device "
+                           "here")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return union_length(spans) / 1e3 / iters
+
+
+def union_length(spans) -> float:
+    """Length of the union of (start, end) intervals: overlapping device
+    work (a copy beside a kernel) counts once."""
+    total, reach = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > reach:
+            total += hi - max(lo, reach)
+            reach = hi
+    return total
