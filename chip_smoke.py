@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero before the last line:
 3. kernels against their plain versions, bit for bit: the shared-candidate
    kernel on the case list of yolov3_tensorflow_tpu_torch.testing.nms_cases
    (random sets at K in {8, 64, 256} x C in {6, 20, 80}, K=200 and K=1024,
-   ties, zero-area boxes, all-invalid classes, IoU within 2 ulps of t) and
-   the bench shape B=128, K=64, C=80; the per-group kernel on
+   ties, zero-area boxes, all-invalid classes, IoU within 2 ulps of t), the
+   bench shape B=128, K=64, C=80 and testing.card_cases (B=8 at K=64 and
+   K=256 with C=80; K=1024 at C=80 and at C=160, whose scores are staged in
+   two chunks; K=37 and K=130; B=300); the per-group kernel on
    testing.per_class_cases (dense random sets at K in {64, 200, 256, 1024}
    with random validity and an all-invalid group, the three-box chain, IoU
    within 2 ulps of t).
@@ -56,12 +58,20 @@ Phases, in order; any failure exits non-zero before the last line:
    scores differently: by candidate rank and by anchor index.)
 8. timings (CUDA events, after warm-up): img/s of the packed detector at
    batch 8 and 128 and its stages at batch 128; ms per batch of the exact
-   detector at batch 8 in both configs and its stages at the eval config;
-   beside each detector's ms per batch, the device's busy time per batch
+   detector at batch 8 in both configs and its stages at the eval config
+   (`call_ms`: back-to-back calls, host gaps included); beside each
+   detector's ms per batch, the device's busy time per batch
    (utils.profiling.device_busy_ms, torch.profiler): the difference is
-   time the device waited for the host;
-   each kernel against its plain version on its path's own candidates
-   (B=128, K=64, C=80; G=640, K=1024), timed twice in turns.
+   time the device waited for the host. Every kernel is timed on the device
+   alone (utils.profiling.cuda_ms holds the stream while the host queues
+   the calls), against its plain version, twice in turns; the launch floor
+   (an empty kernel, torch.cuda._sleep(0)) is timed the same way. The
+   shared-candidate kernel on each path's own candidates: packed at batch
+   128 and 8 (K=64) and prefilter at batch 8 (K=256), with the valid and
+   kept candidates per class, the earlier one-CTA-per-image design's times
+   on the same candidates beside it, and its share of the packed
+   detector's device busy time at batch 8; the per-group kernel at G=640,
+   K=1024.
 9. probes (scripts/exp_mxu_shapes.py): the tensor-core chain (K3) against
    its plain version at each of the 10 stem shapes (M 16384, reps 64),
    max|kernel - plain| / max|plain| <= 1e-4 (tensor-core fp32 sums are
@@ -119,6 +129,11 @@ KERNELS = {
     "patch_build": ("yolov3_tensorflow_tpu_torch/csrc/patch_build.cu",
                     "scripts/exp_mxu_shapes.py:121"),
 }
+# the shared-candidate kernel's earlier design (one 8-warp CTA per image,
+# commit 68345cc) on the same candidates, stream held: an H100 80GB HBM3 at
+# 700 W, scripts/compare_revisions.py (PERF.md)
+K1_BEFORE_MS = {"packed_b128_k64": 0.0258, "packed_b8_k64": 0.0243,
+                "prefilter_b8_k256": 0.1635}
 K3_RTOL = 1e-4                         # max|kernel - plain| / max|plain|
 K3_RATIO = (1.7, 2.3)                  # time(2 x reps) / time(reps)
 K3_RECORD = "ctrl 512x512"             # K3's shape in the kernel record
@@ -150,8 +165,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds of fn() over `iters` back-to-back calls."""
+def call_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of fn() over `iters` back-to-back calls,
+    from CUDA events on the stream: the steady cost of a call, host gaps
+    included (utils.profiling.cuda_ms times the device alone)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -163,9 +180,10 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def in_turns(kernel, plain, kernel_iters: int, plain_iters: int):
-    """Kernel and plain version timed twice each, in turns (plain, kernel,
-    kernel, plain). Returns (kernel ms, plain ms, kernel runs, plain
-    runs)."""
+    """Kernel and plain version timed twice each on the device alone
+    (utils.profiling.cuda_ms), in turns (plain, kernel, kernel, plain).
+    Returns (kernel ms, plain ms, kernel runs, plain runs)."""
+    from yolov3_tensorflow_tpu_torch.utils.profiling import cuda_ms
     kernel(), plain()
     runs = {"kernel": [], "plain": []}
     for name, fn, iters in (("plain", plain, plain_iters),
@@ -201,6 +219,52 @@ def kernel_cases(dev: torch.device, cases) -> float:
               f"equal={err == 0.0}")
         check(err == 0.0, f"kernel keep masks differ on case {case.name}")
     return worst
+
+
+def shared_timing(card: str, shapes: dict, busy8: float) -> dict:
+    """Phase 8, the shared-candidate kernel on each path's own candidates
+    (`shapes`: name -> boxes, scores, config): bit-equal to its plain
+    version there, the valid and kept candidates per class, the kernel and
+    its plain version on the device alone in turns, the earlier design's
+    time on the same candidates (K1_BEFORE_MS) and the bound; then the
+    launch floor and the kernel's share of the packed detector's device
+    busy time at batch 8 (`busy8`, ms). Returns name -> (kernel ms, plain
+    ms, bound)."""
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.scripts import roofline
+    from yolov3_tensorflow_tpu_torch.utils.profiling import cuda_ms
+    out = {}
+    for name, (boxes, scores, cfg) in shapes.items():
+        st, it = cfg["score_thresh"], cfg["iou_thresh"]
+        got = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+        want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores, st, it)
+        check(torch.equal(got, want),
+              f"nms_shared keep masks differ on the {name} candidates")
+        n = roofline.shared_counts(scores, want, st)
+        b, k, c = scores.shape
+        k_ms, p_ms, k_runs, p_runs = in_turns(
+            lambda: nms_cuda.nms_keep_mask_shared(boxes, scores, st, it),
+            lambda: nms_cuda.nms_keep_mask_shared_reference(boxes, scores,
+                                                            st, it), 200, 3)
+        bound = roofline.bound_nms_shared(b, k, c)
+        out[name] = (k_ms, p_ms, bound)
+        print(f"nms_shared {name} B={b} K={k} C={c}: valid per class mean "
+              f"{n['valid_mean']:.2f} max {n['valid_max']}, kept per class "
+              f"mean {n['kept_mean']:.2f} max {n['kept_max']}, "
+              f"{n['empty_classes']} of {n['classes']} classes with no valid "
+              f"candidate; kernel == plain; kernel {k_ms:.4f} ms (runs "
+              f"{k_runs[0]:.4f}, {k_runs[1]:.4f}) against the one-CTA "
+              f"design's {K1_BEFORE_MS[name]:.4f} ms, plain PyTorch "
+              f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}); "
+              f"bound {bound[0]:.4f} ms "
+              f"({bound[1]}): {bound[0] / k_ms * 100:.1f}% [{card}]")
+    floor = cuda_ms(lambda: torch.cuda._sleep(0), 200)
+    k8 = out["packed_b8_k64"][0]
+    print(f"launch floor (an empty kernel, torch.cuda._sleep(0)): {floor:.4f} "
+          f"ms; nms_shared at batch 8 takes {k8:.4f} ms, "
+          f"{k8 / busy8 * 100:.2f}% of the packed detector's {busy8:.3f} ms "
+          f"device busy time per batch [{card}]")
+    return out
 
 
 def keep_mask_error(boxes: torch.Tensor, valid: torch.Tensor,
@@ -405,15 +469,17 @@ def main() -> int:
         init_yolov3, yolov3_forward_folded)
     from yolov3_tensorflow_tpu_torch.ops import nms_cuda
     from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
-        packed_candidates, yolov3_forward_packed)
+        packed_candidates, prefilter_candidates, yolov3_forward_packed)
     from yolov3_tensorflow_tpu_torch.ops.nms import (compact_per_class,
                                                      select_per_class)
     from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
     from yolov3_tensorflow_tpu_torch.scripts import roofline
-    from yolov3_tensorflow_tpu_torch.testing import (bench_case, nms_cases,
+    from yolov3_tensorflow_tpu_torch.testing import (bench_case, card_cases,
+                                                     nms_cases,
                                                      per_class_cases)
     from yolov3_tensorflow_tpu_torch.utils import kernels
-    from yolov3_tensorflow_tpu_torch.utils.profiling import device_busy_ms
+    from yolov3_tensorflow_tpu_torch.utils.profiling import (cuda_ms,
+                                                             device_busy_ms)
     from yolov3_tensorflow_tpu_torch.utils.weights import (
         load_darknet_weights, save_darknet_weights)
     check_no_jax()
@@ -447,7 +513,8 @@ def main() -> int:
           f"mma_rate must run on wgmma alone, got {sass}")
 
     # ---- 3. kernels against their plain versions -------------------------
-    cases = nms_cases(batch=16, seed=1) + [bench_case(seed=2)]
+    cases = (nms_cases(batch=16, seed=1) + [bench_case(seed=2)]
+             + card_cases(seed=3))
     max_err = {"nms_shared": kernel_cases(dev, cases), "nms": 0.0}
     for case in per_class_cases(groups=16, seed=1):
         max_err["nms"] = max(max_err["nms"], keep_mask_error(
@@ -638,43 +705,48 @@ def main() -> int:
         thresh, "prefilter vs exact, fp32")
 
     # ---- 8. timings ------------------------------------------------------
-    timings = {}
+    timings, busy_ms = {}, {}
     for b, iters in ((8, 30), (128, 10)):
         images = batches[0] if b == 8 else batches[-1]
         for _ in range(3):
             det(images)
-        ms = cuda_ms(lambda: det(images), iters)
+        ms = call_ms(lambda: det(images), iters)
         timings[b] = ms
-        busy = device_busy_ms(lambda: det(images), 5)
+        busy = busy_ms[b] = device_busy_ms(lambda: det(images), 5)
         print(f"packed detector batch {b}: {ms:.3f} ms/batch, "
               f"{b * 1000.0 / ms:.1f} img/s; device busy {busy:.3f} "
               f"ms/batch [{card}]")
 
     with torch.inference_mode():
         images = batches[-1]
-        fwd_ms = cuda_ms(lambda: yolov3_forward_packed(
+        fwd_ms = call_ms(lambda: yolov3_forward_packed(
             det.packed, images, compute_dtype=torch.bfloat16), 10)
-        cand_ms = cuda_ms(lambda: packed_candidates(
+        cand_ms = call_ms(lambda: packed_candidates(
             outs, C, det.tables, SERVING["box_topk"]), 20)
-        nms_ms = cuda_ms(lambda: nms_cuda.batched_nms_shared(
+        nms_ms = call_ms(lambda: nms_cuda.batched_nms_shared(
             boxes_p, scores_p, max_out=128, score_thresh=0.3,
             iou_thresh=0.45), 20)
     print(f"packed stages at batch 128: forward {fwd_ms:.3f} ms, "
           f"prefilter+decode {cand_ms:.3f} ms, batched_nms_shared "
           f"{nms_ms:.3f} ms [{card}]")
 
-    k_ms, p_ms, k_runs, p_runs = in_turns(
-        lambda: nms_cuda.nms_keep_mask_shared(boxes_p, scores_p, 0.3, 0.45),
-        lambda: nms_cuda.nms_keep_mask_shared_reference(boxes_p, scores_p,
-                                                        0.3, 0.45), 200, 5)
-    kernel_ms = {"nms_shared": (k_ms, p_ms)}
-    bounds = {"nms_shared": roofline.bound_nms_shared(*scores_p.shape)}
+    with torch.inference_mode():
+        outs8 = yolov3_forward_packed(det.packed, batches[0],
+                                      compute_dtype=torch.bfloat16)
+        fmaps8 = yolov3_forward_folded(pre.folded, batches[0],
+                                       compute_dtype=torch.bfloat16)
+        shapes = {
+            "packed_b128_k64": (boxes_p, scores_p, SERVING),
+            "packed_b8_k64": (*packed_candidates(
+                outs8, C, det.tables, SERVING["box_topk"]), SERVING),
+            "prefilter_b8_k256": (*prefilter_candidates(
+                fmaps8, C, pre.tables, BOX_TOPK), DEMO)}
+        del outs8, fmaps8
+    k1 = shared_timing(card, shapes, busy_ms[8])
+    # the record keeps the packed request at the bench batch
+    kernel_ms = {"nms_shared": k1["packed_b128_k64"][:2]}
+    bounds = {"nms_shared": k1["packed_b128_k64"][2]}
     library = {"nms_shared": None, "nms": None}     # no single torch call
-    print(f"nms_shared keep masks B=128 K=64 C=80: kernel {k_ms:.4f} ms "
-          f"(runs {k_runs[0]:.4f}, {k_runs[1]:.4f}), plain PyTorch "
-          f"{p_ms:.4f} ms (runs {p_runs[0]:.4f}, {p_runs[1]:.4f}); bound "
-          f"{bounds['nms_shared'][0]:.4f} ms ({bounds['nms_shared'][1]}): "
-          f"{bounds['nms_shared'][0] / k_ms * 100:.1f}% [{card}]")
 
     images = batches[0]
     for name, cfg in (("eval", EVAL), ("demo", DEMO)):
@@ -683,7 +755,7 @@ def main() -> int:
             compute_dtype=torch.bfloat16, mode="exact", **cfg)
         for _ in range(3):
             d(images)
-        ms = cuda_ms(lambda: d(images), 10)
+        ms = call_ms(lambda: d(images), 10)
         busy = device_busy_ms(lambda: d(images), 5)
         print(f"exact detector batch 8, {name} config (pre_topk "
               f"{cfg['pre_topk']}, score {cfg['score_thresh']}): {ms:.3f} "
@@ -691,7 +763,7 @@ def main() -> int:
               f"{busy:.3f} ms/batch [{card}]")
 
     with torch.inference_mode():
-        fwd_ms = cuda_ms(lambda: yolov3_forward_folded(
+        fwd_ms = call_ms(lambda: yolov3_forward_folded(
             exact.folded, images, compute_dtype=torch.bfloat16), 10)
         fmaps = yolov3_forward_folded(exact.folded, images,
                                       compute_dtype=torch.bfloat16)
@@ -701,7 +773,7 @@ def main() -> int:
             return select_per_class(bx, cf * pr, EVAL["pre_topk"],
                                     EVAL["score_thresh"])
 
-        sel_ms = cuda_ms(select, 10)
+        sel_ms = call_ms(select, 10)
         top_scores, top_boxes, valid = select()
         b, _, k = valid.shape
         gboxes, gvalid = top_boxes.reshape(b * C, k, 4), valid.reshape(b * C, k)
@@ -709,7 +781,7 @@ def main() -> int:
             gboxes, gvalid, EVAL["iou_thresh"]), 20)
         keep = nms_cuda.nms_keep_mask(gboxes, gvalid,
                                       EVAL["iou_thresh"]).view(b, C, k)
-        compact_ms = cuda_ms(lambda: compact_per_class(
+        compact_ms = call_ms(lambda: compact_per_class(
             keep, top_scores, top_boxes, EVAL["max_out"]), 20)
     print(f"exact stages at batch 8, eval config: forward {fwd_ms:.3f} ms, "
           f"decode+per-class sort+gather {sel_ms:.3f} ms, nms kernel "

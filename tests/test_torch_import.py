@@ -24,7 +24,8 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("ops.nms_cuda", "ops.nms", "models.decode",
                  "utils.weights", "utils.kernels", "utils.profiling",
                  "scripts.exp_mxu_shapes", "scripts.roofline",
-                 "scripts.profile_stages", "testing"):
+                 "scripts.profile_stages", "scripts.compare_revisions",
+                 "scripts.k1_phases", "testing"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

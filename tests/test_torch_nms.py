@@ -2,9 +2,11 @@
 
 On the CPU: the plain PyTorch keep masks equal the JAX Pallas kernel (in
 interpret mode) and the numpy greedy oracle bit for bit, on the case list
-that chip_smoke.py also runs on the card; `batched_nms_shared` equals the
-JAX wrapper in both of its branches. The `cuda` test holds the CUDA kernel
-to the plain version on the card.
+that chip_smoke.py also runs on the card (and the oracle alone on the
+card-only cases small enough for it); `batched_nms_shared` equals the JAX
+wrapper in both of its branches; the kernel's launch plan (`shared_plan`)
+fits shared memory and reads class columns without bank conflicts. The
+`cuda` test holds the CUDA kernel to the plain version on the card.
 
 JAX is imported inside a fixture, not at the top: the GPU machine has no
 jax, and there this file runs its `cuda` test alone
@@ -17,11 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from yolov3_tensorflow_tpu_torch.ops import nms_cuda
 from yolov3_tensorflow_tpu_torch.ops.nms_cuda import (
-    batched_nms_shared, nms_keep_mask_shared, nms_keep_mask_shared_reference)
-from yolov3_tensorflow_tpu_torch.testing import bench_case, nms_cases
+    batched_nms_shared, nms_keep_mask_shared, nms_keep_mask_shared_reference,
+    shared_plan)
+from yolov3_tensorflow_tpu_torch.testing import (bench_case, card_cases,
+                                                 nms_cases)
 
 CASES = {c.name: c for c in nms_cases(batch=2)}
+SMALL_CARD_CASES = {c.name: c for c in card_cases()
+                    if c.name.startswith(("ragged", "one_cta"))}
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +79,63 @@ def test_reference_matches_jax_kernel_and_oracle(name, jref):
         assert 0 < got.sum() < valid.sum(), "case must keep and suppress"
 
 
+@pytest.mark.parametrize("name", sorted(SMALL_CARD_CASES))
+def test_reference_matches_oracle_on_small_card_cases(name, jref):
+    """The card-only cases whose shapes the kernel treats apart (keep rows
+    that are not whole 32-bit words, a batch large enough for one CTA per
+    image) are real NMS work: the plain version equals the numpy oracle and
+    keeps and suppresses."""
+    case = SMALL_CARD_CASES[name]
+    got = nms_keep_mask_shared_reference(
+        torch.from_numpy(case.boxes), torch.from_numpy(case.scores),
+        case.score_thresh, case.iou_thresh).numpy()
+    np.testing.assert_array_equal(got, _oracle(jref, case))
+    valid = case.scores.transpose(0, 2, 1) >= np.float32(case.score_thresh)
+    assert 0 < got.sum() < valid.sum()
+
+
+@pytest.mark.parametrize("k", [1, 8, 64, 200, 256, 1024])
+@pytest.mark.parametrize("c", [1, 6, 20, 80, 91])
+def test_shared_plan_fits_and_reads_columns_without_conflicts(k, c):
+    """At every batch: the CTA's shared memory (boxes and areas, the whole
+    mask, the staged scores) fits in 227 KB, as many classes are staged as
+    fit, the odd pitch puts the 32 candidates of a class column in 32
+    banks, the slices cover the classes, and a cluster is a portable one
+    that only K > 64 uses."""
+    t = -(-k // 32)
+    for b in (1, 8, 64, 128, 300):
+        p = shared_plan(b, k, c)
+        assert p.smem == 4 * (5 * k + k * t + k * p.pitch)
+        assert p.smem <= nms_cuda.SMEM_LIMIT
+        assert p.pitch % 2 == 1 and p.chunk <= p.pitch <= p.chunk + 1
+        assert 1 <= p.chunk <= p.classes
+        if p.chunk < p.classes:             # one class more would not fit
+            assert 4 * (5 * k + k * t + k * ((p.chunk + 1) | 1)) \
+                > nms_cuda.SMEM_LIMIT
+        for col in range(p.chunk):
+            banks = {(j * p.pitch + col) % 32 for j in range(32)}
+            assert len(banks) == 32
+        assert p.slices in (1, 2, 4, 8)
+        assert p.classes * p.slices >= c > (p.classes - 1) * p.slices
+        assert p.shared == (p.slices > 1 and k > nms_cuda.REBUILD_K)
+        assert p.warps * 32 <= (1024 if k <= 256 else 512)
+        # the fewest slices that give FILL_CTAS CTAs, or the most there are
+        assert p.slices == nms_cuda.MAX_SLICES \
+            or b * p.slices >= nms_cuda.FILL_CTAS
+        assert p.slices == 1 or b * p.slices // 2 < nms_cuda.FILL_CTAS
+
+
+def test_shared_plan_at_the_serving_shapes():
+    """The packed request at the bench batch takes one 32-warp CTA per
+    image; the small packed request 8 per image, each building the mask;
+    the prefilter request 8 per image as one cluster sharing it."""
+    assert shared_plan(128, 64, 80) == (1, False, 32, 80, 80, 81, 22528)
+    assert shared_plan(8, 64, 80) == (8, False, 32, 10, 10, 11, 4608)
+    assert shared_plan(8, 256, 80) == (8, True, 32, 10, 10, 11, 24576)
+    # K = 1024 at 160 classes stages its 20 classes a CTA in two chunks
+    assert shared_plan(2, 1024, 160) == (8, True, 16, 20, 19, 19, 229376)
+
+
 @pytest.mark.parametrize("max_out", [80, 64, 16])
 def test_batched_nms_shared_matches_jax(max_out, jref):
     """max_out >= K emits every kept candidate in candidate order; max_out
@@ -119,7 +183,8 @@ def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    cases = nms_cases(batch=4, seed=1) + [bench_case(seed=2)]
+    cases = (nms_cases(batch=4, seed=1) + [bench_case(seed=2)]
+             + card_cases(seed=3))
     for case in cases:
         boxes = torch.from_numpy(case.boxes).to(dev)
         scores = torch.from_numpy(case.scores).to(dev)

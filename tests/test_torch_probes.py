@@ -205,6 +205,33 @@ def test_sass_counts_read_the_opcodes_off_cuobjdump(monkeypatch):
     assert kernels.sass_counts(Path("lib.so")) == {"HGMMA": 2, "HMMA": 1}
 
 
+def test_build_with_defines_names_a_library_of_its_own(monkeypatch,
+                                                      tmp_path):
+    """An instrumented build (K1_PHASES) passes -D to nvcc and lands in a
+    library of its own name, beside the shipped one."""
+    from yolov3_tensorflow_tpu_torch.utils import kernels
+    cmds = []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **_):
+            cmds.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+
+        def wait(self):
+            return 0
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernels.subprocess, "Popen", Proc)
+    plain = kernels.build_kernel("nms_shared")
+    phased = kernels.build_kernel("nms_shared", defines=("K1_PHASES",))
+    assert plain != phased and plain.exists() and phased.exists()
+    assert "-DK1_PHASES" not in cmds[0] and "-DK1_PHASES" in cmds[1]
+    assert kernels.build_kernel("nms_shared") == plain and len(cmds) == 2
+
+
 def test_measurements_need_a_gpu():
     with pytest.raises(RuntimeError):
         probes.mma_rate(1024, 128, 64, device=torch.device("cpu"))

@@ -136,6 +136,23 @@ def test_stem_forward_stops_before_conv_upto(routes):
     assert x.shape == (2, SIZE // 2, SIZE // 2, 64)
 
 
+def test_k1_phases_from_stamps():
+    """K1's phase stamps (K1_PHASES layout: globaltimer ns at entry and
+    exit, clock64 at entry, after load, mask, share, classes and at exit)
+    become the span and each phase's mean and largest time over the CTAs,
+    cycles at 2 GHz."""
+    from yolov3_tensorflow_tpu_torch.scripts.k1_phases import phases
+    stamps = np.array([[1000, 0, 2000, 4000, 5000, 9000, 9500, 9000],
+                       [1500, 0, 1000, 3000, 3100, 3200, 3300, 7000]],
+                      np.uint64)
+    got = phases(stamps, 2.0)
+    assert got["span_us"] == 8.0
+    assert got["mean_us"] == {"load": 0.75, "mask": 1.0, "share": 0.275,
+                              "classes": 1.025, "exit": 0.15}
+    assert got["max_us"] == {"load": 1.0, "mask": 1.0, "share": 0.5,
+                             "classes": 2.0, "exit": 0.25}
+
+
 def test_profile_needs_a_gpu():
     with pytest.raises(RuntimeError):
         profile_stages.profile({}, 2, (64, 64), device=CPU)

@@ -118,6 +118,23 @@ def test_nms_pairs_counts_only_what_the_inputs_need():
     assert roofline.nms_pairs(valid[:, :0], keep[:, :0]) == 0
 
 
+def test_shared_counts_per_class():
+    """K1's input counts: 2 images x 3 classes over 4 candidates."""
+    scores = torch.tensor([[[0.9, 0.1, 0.0], [0.8, 0.2, 0.0],
+                            [0.5, 0.4, 0.0], [0.1, 0.3, 0.0]],
+                           [[0.0, 0.6, 0.0], [0.0, 0.6, 0.0],
+                            [0.0, 0.7, 0.0], [0.0, 0.1, 0.0]]])
+    keep = torch.zeros(2, 3, 4, dtype=torch.bool)
+    keep[0, 0, [0, 2]] = True
+    keep[0, 1, 2] = True
+    keep[1, 1, [1, 2]] = True
+    got = roofline.shared_counts(scores, keep, 0.3)
+    # valid per class: image 0: 3, 2, 0; image 1: 0, 3, 0
+    assert got == {"valid_mean": pytest.approx(8 / 6), "valid_max": 3,
+                   "kept_mean": pytest.approx(5 / 6), "kept_max": 2,
+                   "empty_classes": 3, "classes": 6}
+
+
 def test_main_refuses_to_run_without_the_constants(capsys):
     for argv in ([], ["--peak_tflops", "800"], ["--hbm_gbs", "3000"]):
         with pytest.raises(SystemExit) as exc:

@@ -223,26 +223,14 @@ def flatten_feature_maps(feature_maps: Sequence[torch.Tensor],
                       for f in feature_maps], dim=1)
 
 
-def postprocess_prefilter(feature_maps: Sequence[torch.Tensor],
-                          anchors: np.ndarray, num_classes: int,
-                          img_size: Tuple[int, int], *,
-                          max_out: int = 50, box_topk: int = 256,
-                          pre_topk: int = 128, score_thresh: float = 0.3,
-                          iou_thresh: float = 0.45,
-                          tables: Optional[torch.Tensor] = None
-                          ) -> Dict[str, torch.Tensor]:
-    """Batched detection from the folded forward's raw feature maps through
-    the objectness prefilter (see the module docstring).
-
-    Returns dict of [B, C*max_out, ...], the `ops.postprocess` contract.
-    `tables` is `decode_tables(img_size, anchors)` on the maps' device, built
-    here when not given. The NMS follows the JAX package's routes: on CUDA
-    tensors the shared-candidate kernel over all K candidates (rows in
-    candidate order when max_out >= K), on CPU tensors the plain per-class
-    `batched_nms` over each class's min(pre_topk, K) best. Unlike the exact
-    path's decode, the box sizes are exp(tw) with no clamp, as in the JAX
-    prefilter.
-    """
+def prefilter_candidates(feature_maps: Sequence[torch.Tensor],
+                         num_classes: int, tables: torch.Tensor,
+                         box_topk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prefilter's selection and decode: the folded forward's raw maps
+    -> (boxes [B, K, 4] xyxy in input pixels, scores [B, K, C]), both fp32,
+    for the K = min(box_topk, A) best anchors of each image (ties to the
+    lower anchor index). Unlike the exact path's decode, the box sizes are
+    exp(tw) with no clamp, as in the JAX prefilter."""
     c = num_classes
     raw = flatten_feature_maps(feature_maps, c)                 # [B, A, 5+C]
     k_box = min(box_topk, raw.shape[1])
@@ -253,8 +241,6 @@ def postprocess_prefilter(feature_maps: Sequence[torch.Tensor],
     cand = cand[:, :k_box]
     rows = raw.float().gather(1, cand[..., None].expand(-1, -1, 5 + c))
 
-    if tables is None:
-        tables = decode_tables(img_size, anchors, device=raw.device)
     gx, gy, grw, grh, gaw, gah = tables[:, cand]                # [B, K] each
     cx = (torch.sigmoid(rows[..., 0]) + gx) * grw
     cy = (torch.sigmoid(rows[..., 1]) + gy) * grh
@@ -263,8 +249,36 @@ def postprocess_prefilter(feature_maps: Sequence[torch.Tensor],
     boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
                         dim=-1)
     scores = torch.sigmoid(rows[..., 4:5]) * torch.sigmoid(rows[..., 5:5 + c])
+    return boxes, scores
 
-    if raw.device.type == "cuda":
+
+def postprocess_prefilter(feature_maps: Sequence[torch.Tensor],
+                          anchors: np.ndarray, num_classes: int,
+                          img_size: Tuple[int, int], *,
+                          max_out: int = 50, box_topk: int = 256,
+                          pre_topk: int = 128, score_thresh: float = 0.3,
+                          iou_thresh: float = 0.45,
+                          tables: Optional[torch.Tensor] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Batched detection from the folded forward's raw feature maps through
+    the objectness prefilter (see the module docstring and
+    `prefilter_candidates`).
+
+    Returns dict of [B, C*max_out, ...], the `ops.postprocess` contract.
+    `tables` is `decode_tables(img_size, anchors)` on the maps' device, built
+    here when not given. The NMS follows the JAX package's routes: on CUDA
+    tensors the shared-candidate kernel over all K candidates (rows in
+    candidate order when max_out >= K), on CPU tensors the plain per-class
+    `batched_nms` over each class's min(pre_topk, K) best.
+    """
+    device = feature_maps[0].device
+    if tables is None:
+        tables = decode_tables(img_size, anchors, device=device)
+    boxes, scores = prefilter_candidates(feature_maps, num_classes, tables,
+                                         box_topk)
+    k_box = boxes.shape[1]
+
+    if device.type == "cuda":
         return batched_nms_shared(boxes, scores, max_out=max_out,
                                   score_thresh=score_thresh,
                                   iou_thresh=iou_thresh)

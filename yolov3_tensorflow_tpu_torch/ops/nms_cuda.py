@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -33,6 +33,58 @@ from yolov3_tensorflow_tpu_torch.ops.nms import (compact_per_class,
 
 MAX_K = 1024   # K1 keeps K x K IoU>t bits in shared memory, K2 a row of
                # at most 32 words of 32 candidates
+SMEM_LIMIT = 232448    # bytes of shared memory a CTA may opt into (227 KB)
+FILL_CTAS = 64         # K1's grid, at least, where the batch allows
+MAX_SLICES = 8         # K1's CTAs per image (the largest portable cluster)
+WARPS = (32, 16)       # K1's warps per CTA up to K = 256, and above
+REBUILD_K = 64         # up to this K each K1 CTA builds the whole mask
+
+
+class SharedPlan(NamedTuple):
+    """How K1 (`csrc/nms_shared.cu`) cuts one launch."""
+    slices: int        # S: CTAs per image, each with its own classes
+    shared: bool       # the S CTAs form a cluster and share one mask
+    warps: int         # warps per CTA, one class each at a time
+    classes: int       # Cs: classes per CTA, ceil(C / S)
+    chunk: int         # Cc: classes staged into shared memory at a time
+    pitch: int         # P: floats per staged score row, odd
+    smem: int          # dynamic shared memory per CTA, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def shared_plan(b: int, k: int, c: int) -> SharedPlan:
+    """K1's plan for boxes [b, k, 4] and scores [b, k, c].
+
+    S is the smallest power of two (at most MAX_SLICES) that gives at least
+    FILL_CTAS CTAs: a batch of 8 spreads over 64 SMs, a batch of 64 or more
+    takes one CTA per image. Each CTA owns ceil(c / S) classes, a warp per
+    class at a time, with 32 warps up to K = 256 (16 above, where a lane's
+    32 candidates need more registers). Up to K = REBUILD_K each CTA builds
+    the image's whole IoU>t mask (2,016 IoU tests at K = 64); above, the S
+    CTAs form a cluster and each builds 1/S of it. On an H100, at the
+    serving candidates, S = 1 beat 2, 4 and 8 at B = 128, 32 warps beat
+    16, and a mask shared by a cluster lost to one rebuilt per CTA at
+    K = 64 and won at K = 256 (PERF.md).
+
+    A CTA's shared memory holds the boxes and areas (20 bytes a candidate),
+    the whole mask (4 * ceil(k / 32) bytes a candidate) and its staged
+    scores (4 * pitch bytes a candidate); the staged classes are cut down to
+    a chunk until that fits in 227 KB. The pitch is odd so that a warp
+    reading one class column from 32 consecutive candidates hits 32
+    different banks."""
+    t = -(-k // 32)
+    s = 1
+    while s < MAX_SLICES and b * s < FILL_CTAS:
+        s *= 2
+    cs = -(-c // s)
+    warps = WARPS[0] if k <= 256 else WARPS[1]
+    fixed = 4 * (5 * k + k * t)
+    chunk = cs
+    while fixed + 4 * k * (chunk | 1) > SMEM_LIMIT:
+        chunk -= 1
+    pitch = chunk | 1
+    return SharedPlan(s, s > 1 and k > REBUILD_K, warps, cs, chunk, pitch,
+                      fixed + 4 * k * pitch)
 
 
 def nms_keep_mask_shared_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -71,8 +123,9 @@ def nms_keep_mask_shared(boxes: torch.Tensor, scores: torch.Tensor,
 
     boxes [B, K, 4] xyxy fp32, scores [B, K, C] fp32 -> keep [B, C, K] bool.
     CUDA tensors go to the hand-written kernel (K <= 1024, contiguous
-    inputs); CPU tensors to `nms_keep_mask_shared_reference`. Each kernel
-    launch adds one to `nms_keep_mask_shared.launches`.
+    inputs), cut as `shared_plan` says; CPU tensors to
+    `nms_keep_mask_shared_reference`. Each kernel launch adds one to
+    `nms_keep_mask_shared.launches`.
     """
     if boxes.device.type == "cpu" and scores.device.type == "cpu":
         return nms_keep_mask_shared_reference(boxes, scores, score_thresh,
@@ -100,10 +153,13 @@ def nms_keep_mask_shared(boxes: torch.Tensor, scores: torch.Tensor,
     keep = torch.empty((b, c, k), dtype=torch.bool, device=boxes.device)
     if keep.numel() == 0:
         return keep
+    plan = shared_plan(b, k, c)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     err = _shared_launcher()(boxes.data_ptr(), scores.data_ptr(),
                              keep.data_ptr(), b, k, c, float(iou_thresh),
-                             float(score_thresh), stream)
+                             float(score_thresh), plan.slices,
+                             int(plan.shared), plan.warps, plan.classes,
+                             plan.chunk, plan.pitch, stream)
     if err != 0:
         raise RuntimeError(f"nms_shared kernel launch failed: CUDA error {err}")
     nms_keep_mask_shared.launches += 1
@@ -115,14 +171,21 @@ nms_keep_mask_shared.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _shared_launcher():
-    """Build (at first use) and bind the C entry point of nms_shared.cu.
-    Pointers and the stream are c_void_p so ctypes does not cut them to
-    32 bits."""
+    """Build (at first use) and bind the C entry point of nms_shared.cu."""
     from yolov3_tensorflow_tpu_torch.utils.kernels import load_kernel
-    fn = load_kernel("nms_shared").nms_shared_launch
+    return bind_shared(load_kernel("nms_shared"))
+
+
+def bind_shared(lib: ctypes.CDLL):
+    """nms_shared.cu's C entry point in a loaded library, with its argument
+    types: pointers and the stream are c_void_p so ctypes does not cut them
+    to 32 bits."""
+    fn = lib.nms_shared_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

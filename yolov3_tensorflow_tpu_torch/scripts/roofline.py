@@ -106,6 +106,19 @@ def bound_nms_shared(b: int, k: int, c: int) -> Tuple[float, str]:
     return kernel_bound(b * k * (k - 1) / 2.0 * IOU_OPS,
                         b * k * 16.0 + b * k * c * 4.0 + b * c * k, "fp32")
 
+
+def shared_counts(scores: torch.Tensor, keep: torch.Tensor,
+                  score_thresh: float) -> Dict[str, float]:
+    """What K1's inputs ask of it, per (image, class): valid candidates
+    (score >= score_thresh; mean, max), kept candidates (mean, max), and
+    how many classes have no valid candidate at all. scores [B, K, C],
+    keep [B, C, K] bool."""
+    nv = (scores >= score_thresh).sum(1).float()                # [B, C]
+    nk = keep.sum(-1).float()
+    return {"valid_mean": float(nv.mean()), "valid_max": int(nv.max()),
+            "kept_mean": float(nk.mean()), "kept_max": int(nk.max()),
+            "empty_classes": int((nv == 0).sum()), "classes": nv.numel()}
+
 # the JAX script's names for the three scales (strides 32, 16, 8)
 _SCALES = ("13", "26", "52")
 

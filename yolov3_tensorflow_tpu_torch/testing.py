@@ -178,6 +178,26 @@ def nms_cases(batch: int, seed: int = 0) -> List[NmsCase]:
     return cases
 
 
+def card_cases(seed: int = 0) -> List[NmsCase]:
+    """Shared-candidate cases for the card's list only (the CPU tests'
+    JAX interpret run would take too long at these sizes): random sets at
+    the small packed request (B=8, K=64, C=80), the prefilter request (B=8,
+    K=256, C=80) and the kernel's shared-memory edge (K=1024, C=80: the
+    whole K x K mask beside a staged slice of scores); K=1024, C=160, whose
+    slices are staged in two chunks; K=37 and K=130, whose keep rows are
+    not whole 32-bit words; and B=300, which needs no cluster."""
+    rng = np.random.default_rng(seed)
+    shapes = (("packed_b8_k64_c80", 8, 64, 80, 200.0),
+              ("prefilter_b8_k256_c80", 8, 256, 80, 300.0),
+              ("edge_b2_k1024_c80", 2, 1024, 80, 400.0),
+              ("chunked_b2_k1024_c160", 2, 1024, 160, 400.0),
+              ("ragged_b3_k37_c7", 3, 37, 7, 120.0),
+              ("ragged_b3_k130_c7", 3, 130, 7, 200.0),
+              ("one_cta_b300_k8_c6", 300, 8, 6, 60.0))
+    return [NmsCase(name, _boxes(rng, b, k, span), _scores(rng, b, k, c),
+                    SCORE_T, IOU_T) for name, b, k, c, span in shapes]
+
+
 class KeepCase(NamedTuple):
     name: str
     boxes: np.ndarray          # [G, K, 4] float32 xyxy, rows in rank order

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -39,24 +39,29 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
-def build_kernels(*names: str) -> Dict[str, Path]:
+def build_kernels(*names: str, defines: Tuple[str, ...] = ()
+                  ) -> Dict[str, Path]:
     """Compile csrc/<name>.cu for each name whose library does not exist
     yet: one nvcc per source, all started together, each one's output
     (register and shared-memory use, from -Xptxas=-v) kept in
-    `<library>.log`. Waits for every compiler it started, then raises if
-    any failed. Returns each name's library path."""
+    `<library>.log`. `defines` are preprocessor macros for every source
+    (an instrumented build, such as K1_PHASES for scripts/k1_phases.py);
+    they are part of the library's name. Waits for every compiler it
+    started, then raises if any failed. Returns each name's library
+    path."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     outs: Dict[str, Path] = {}
     started = []
     for name in names:
         src = (CSRC / f"{name}.cu").read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
         out = outs[name] = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = out.with_suffix(".so.log")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         with open(log, "w") as f:
             proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
         started.append((name, proc, tmp, out, log))
@@ -98,9 +103,9 @@ def sass_counts(lib: Path, opcodes=("HGMMA", "HMMA")) -> Dict[str, int]:
     return {op: heads.count(op) for op in opcodes}
 
 
-def build_kernel(name: str) -> Path:
+def build_kernel(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """`build_kernels` for one source. Returns the library's path."""
-    return build_kernels(name)[name]
+    return build_kernels(name, defines=defines)[name]
 
 
 @functools.lru_cache(maxsize=None)
