@@ -90,7 +90,24 @@ Phases, in order; any failure exits non-zero before the last line:
    matmul peak and the better copy bandwidth; the packed detector's
    batch-128 ms/batch of phase 8 as a share of its bound (it must be
    under 1); the stage table.
-11. prints the kernel record and the device record as JSON; the last line
+11. entry points: a .weights file of phase 4's tree, two seeded 480x640
+   BGR jpgs and a 24-frame 480x640 video (mp4v) in a temporary directory.
+   cli.detect_image at 416^2 on the GPU in its default mode (prefilter:
+   one shared-candidate launch) and in --mode exact (one per-group
+   launch); rc 0, an output of the input's shape, boxes drawn.
+   cli.detect_video with --save_video true four ways: streaming prefilter
+   (the default) at frame batch 1 and 8, streaming packed at frame batch
+   8, host preprocessing at frame batch 1; rc 0, 24 frames out, one
+   shared-candidate launch per dispatch (24 or 3), each run's
+   steady-state FPS printed. Then the streaming detector
+   (ops.preprocess.build_streaming_detector) at 480x640 -> 416^2 in both
+   modes: the shared-candidate kernel bit-equal to its plain version on
+   the detector's own candidates (batch 8), device_letterbox on the GPU
+   within 0.01/255 of the CPU's, fp32 detections on the GPU equal to the
+   CPU's on 2 frames (same label, IoU >= 0.9, score >= 0.32); ms per call
+   (host gaps included) and device busy time at frame batch 1 and 8, and
+   the pinned uint8 host-to-device copy alone.
+12. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -139,6 +156,11 @@ K3_RATIO = (1.7, 2.3)                  # time(2 x reps) / time(reps)
 K3_RECORD = "ctrl 512x512"             # K3's shape in the kernel record
 K4_RECORD = 128                        # K4's width in the kernel record
 ROOF_BATCH = 128                       # batch of the roofline and profile
+CLI_SRC_HW = (480, 640)                # the entry points' input frames
+CLI_FRAMES = 24                        # frames of the input video
+STREAM = dict(max_out=200, score_thresh=0.3, iou_thresh=0.45)
+STREAM_BATCHES = (1, 8)                # frame batches timed
+LETTERBOX_ATOL = 0.01 / 255            # device_letterbox, GPU vs CPU
 
 
 def fail(msg: str) -> None:
@@ -451,6 +473,221 @@ def roofline_phase(dev: torch.device, card: str, variables: dict,
         print(f"  {line}")
 
 
+def run_cli(main_fn, argv, module) -> tuple:
+    """One CLI run with the kernels' counts set to 0 just before it and
+    read just after, its standard output captured and the boxes it draws
+    counted (`module.plot_one_box` wrapped for the run). Returns (rc,
+    stdout, boxes drawn, shared-candidate launches, per-group launches,
+    wall seconds)."""
+    import contextlib
+    import io
+
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    plot, drawn = module.plot_one_box, []
+
+    def counting_plot(img, coord, **kw):
+        drawn.append(coord)
+        plot(img, coord, **kw)
+
+    module.plot_one_box = counting_plot
+    out = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        nms_cuda.nms_keep_mask_shared.launches = 0
+        nms_cuda.nms_keep_mask.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        module.plot_one_box = plot
+    return (rc, out.getvalue(), len(drawn),
+            nms_cuda.nms_keep_mask_shared.launches,
+            nms_cuda.nms_keep_mask.launches, wall)
+
+
+def video_frames(path: Path) -> list:
+    """Shapes of the frames cv2 reads back from a video file."""
+    import cv2
+    cap = cv2.VideoCapture(str(path))
+    shapes = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    cap.release()
+    return shapes
+
+
+def cli_phase(dev: torch.device, card: str, variables: dict,
+              anchors: np.ndarray, max_err: dict) -> None:
+    """Phase 11: the entry points. Both CLIs (cli.detect_image,
+    cli.detect_video) at COCO-80, 416x416, bf16, the demo thresholds, on
+    `variables` written to a .weights file, seeded 480x640 BGR jpgs and a
+    24-frame 480x640 video; then the streaming detector itself (K1 on its
+    own candidates against the plain version, the device letterbox against
+    the CPU's, fp32 detections against the CPU's) and its timings."""
+    import cv2
+
+    from yolov3_tensorflow_tpu_torch.cli import detect_image, detect_video
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import \
+        yolov3_forward_folded
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        packed_candidates, prefilter_candidates, yolov3_forward_packed)
+    from yolov3_tensorflow_tpu_torch.ops.preprocess import (
+        STREAM_BOX_TOPK, build_streaming_detector, device_letterbox)
+    from yolov3_tensorflow_tpu_torch.utils.profiling import (cuda_ms,
+                                                             device_busy_ms)
+    from yolov3_tensorflow_tpu_torch.utils.weights import save_darknet_weights
+
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (CLI_FRAMES,) + CLI_SRC_HW + (3,),
+                          dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        weights = tmp / "spread_coco80.weights"
+        save_darknet_weights(variables, str(weights), C)
+        images = []
+        for i in range(2):
+            images.append(tmp / f"in{i}.jpg")
+            check(cv2.imwrite(str(images[-1]), frames[i]),
+                  "cv2 cannot write a jpg")
+        video = tmp / "in.mp4"
+        writer = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"mp4v"),
+                                 25, (CLI_SRC_HW[1], CLI_SRC_HW[0]))
+        check(writer.isOpened(), "cv2 cannot write an mp4v video here")
+        for frame in frames:
+            writer.write(frame)
+        writer.release()
+        check(len(video_frames(video)) == CLI_FRAMES,
+              "cv2 does not read back the input video")
+
+        common = ["--restore_path", str(weights), "--device", str(dev),
+                  "--new_size", str(SIZE), str(SIZE)]
+        for mode, image, kernel in (("prefilter", images[0], "nms_shared"),
+                                    ("exact", images[1], "nms")):
+            out = tmp / f"out_{mode}.jpg"
+            argv = [str(image), *common, "--output", str(out)]
+            if mode != "prefilter":          # prefilter is the default
+                argv += ["--mode", mode]
+            rc, _, drawn, k1, k2, wall = run_cli(detect_image.main, argv,
+                                                 detect_image)
+            print(f"detect_image --mode {mode} ({SIZE}^2, bf16): rc {rc}, "
+                  f"{drawn} boxes drawn, nms_shared launches {k1}, nms "
+                  f"launches {k2}, {wall:.2f} s wall (weights load and "
+                  f"first call included)")
+            check(rc == 0, f"detect_image --mode {mode} returned {rc}")
+            got = cv2.imread(str(out))
+            check(got is not None and got.shape == CLI_SRC_HW + (3,),
+                  f"detect_image --mode {mode}: output image "
+                  f"{None if got is None else got.shape}")
+            check(drawn > 0, f"detect_image --mode {mode}: no detections")
+            want = {"nms_shared": (1, 0), "nms": (0, 1)}[kernel]
+            check((k1, k2) == want, f"detect_image --mode {mode}: launches "
+                                    f"(nms_shared, nms) {(k1, k2)}, want "
+                                    f"{want}")
+
+        runs = (("streaming prefilter, frame batch 1", ["--frame_batch", "1"],
+                 CLI_FRAMES),
+                ("streaming prefilter, frame batch 8", ["--frame_batch", "8"],
+                 CLI_FRAMES // 8),
+                ("streaming packed, frame batch 8",
+                 ["--mode", "packed", "--frame_batch", "8"], CLI_FRAMES // 8),
+                ("host preprocessing, prefilter, frame batch 1",
+                 ["--device_preprocess", "false"], CLI_FRAMES))
+        for i, (name, extra, dispatches) in enumerate(runs):
+            out = tmp / f"out{i}.mp4"
+            argv = [str(video), *common, "--save_video", "true", "--output",
+                    str(out), *extra]
+            rc, text, drawn, k1, k2, wall = run_cli(detect_video.main, argv,
+                                                    detect_video)
+            fps = [line for line in text.splitlines() if "FPS" in line]
+            print(f"detect_video {name}: rc {rc}, {fps[-1] if fps else '?'}; "
+                  f"{drawn} boxes drawn, nms_shared launches {k1} "
+                  f"(dispatches {dispatches}), nms launches {k2}, "
+                  f"{wall:.2f} s wall [{card}]")
+            check(rc == 0, f"detect_video {name} returned {rc}")
+            shapes = video_frames(out)
+            check(shapes == [CLI_SRC_HW + (3,)] * CLI_FRAMES,
+                  f"detect_video {name}: {len(shapes)} frames out")
+            check(drawn > 0, f"detect_video {name}: no detections")
+            check((k1, k2) == (dispatches, 0),
+                  f"detect_video {name}: launches (nms_shared, nms) "
+                  f"{(k1, k2)}, want {(dispatches, 0)}")
+
+    # the streaming detector itself
+    src = f"{CLI_SRC_HW[0]}x{CLI_SRC_HW[1]}"
+    host = torch.from_numpy(frames[:8])
+    on_dev = host.to(dev)
+    lb_dev = device_letterbox(on_dev[:2], (SIZE, SIZE))
+    lb_cpu = device_letterbox(host[:2], (SIZE, SIZE))
+    err = float((lb_dev.cpu() - lb_cpu).abs().max())
+    print(f"device_letterbox {src} -> {SIZE}^2, GPU against CPU: max |diff| "
+          f"{err * 255:.3g} of 255 (limit {LETTERBOX_ATOL * 255:.3g})")
+    check(err <= LETTERBOX_ATOL, "device_letterbox differs on the GPU")
+    for mode in ("prefilter", "packed"):
+        detect, _ = build_streaming_detector(
+            variables, anchors, C, CLI_SRC_HW, (SIZE, SIZE), device=dev,
+            bgr_input=True, mode=mode, **STREAM)
+        det = detect.detector
+        with torch.inference_mode():
+            images = device_letterbox(on_dev.flip(-1), (SIZE, SIZE))
+            if mode == "prefilter":
+                boxes, scores = prefilter_candidates(yolov3_forward_folded(
+                    det.folded, images, compute_dtype=torch.bfloat16), C,
+                    det.tables, STREAM_BOX_TOPK)
+            else:
+                boxes, scores = packed_candidates(yolov3_forward_packed(
+                    det.packed, images, compute_dtype=torch.bfloat16), C,
+                    det.tables, STREAM_BOX_TOPK)
+            st, it = STREAM["score_thresh"], STREAM["iou_thresh"]
+            keep = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+            want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores,
+                                                           st, it)
+        err = float((keep.float() - want.float()).abs().max())
+        max_err["nms_shared"] = max(max_err["nms_shared"], err)
+        print(f"streaming {mode} candidates B=8 K={boxes.shape[1]} C={C}: "
+              f"kept {int(want.sum())} of {int((scores >= st).sum())} valid; "
+              f"kernel == plain: {err == 0.0}")
+        check(err == 0.0, f"streaming {mode}: kernel and plain keep masks "
+                          f"differ")
+
+        # fp32 on the GPU against fp32 on the CPU, 2 frames
+        two = host[:2]
+        g32 = build_streaming_detector(
+            variables, anchors, C, CLI_SRC_HW, (SIZE, SIZE), device=dev,
+            bgr_input=True, mode=mode, compute_dtype=torch.float32,
+            **STREAM)[0](two)
+        c32 = build_streaming_detector(
+            variables, anchors, C, CLI_SRC_HW, (SIZE, SIZE),
+            device=torch.device("cpu"), bgr_input=True, mode=mode,
+            compute_dtype=torch.float32, **STREAM)[0](two)
+        same_detections(detections(c32, 2), detections(g32, 2),
+                        STREAM["score_thresh"] + 0.02,
+                        f"streaming {mode} fp32 GPU vs fp32 CPU")
+
+        for fb in STREAM_BATCHES:
+            x = host[:fb].pin_memory()
+            for _ in range(3):
+                detect(x)
+            ms = call_ms(lambda: detect(x), 30 if fb == 1 else 10)
+            busy = device_busy_ms(lambda: detect(x), 5)
+            print(f"streaming {mode} frame batch {fb} (uint8 {src} pinned "
+                  f"on the host -> {SIZE}^2 detections): {ms:.3f} ms/call, "
+                  f"{ms / fb:.3f} ms/frame, {fb * 1000.0 / ms:.1f} frames/s; "
+                  f"device busy {busy:.3f} ms/call, idle share "
+                  f"{max(0.0, 1 - busy / ms):.3f} [{card}]")
+    for fb in STREAM_BATCHES:
+        x = host[:fb].pin_memory()
+        ms = cuda_ms(lambda: x.to(dev, non_blocking=True), 50)
+        print(f"uint8 host-to-device copy of {fb} frame(s) (pinned, "
+              f"{x.numel() / 1e6:.3f} MB): {ms:.4f} ms on the device, "
+              f"{x.numel() / ms / 1e6:.1f} GB/s [{card}]")
+
+
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -528,7 +765,8 @@ def main() -> int:
     variables = spread_head(
         init_yolov3(torch.Generator().manual_seed(0), C, device=dev), seed=0)
     det = build_detector(variables, anchors, C, (SIZE, SIZE), device=dev,
-                         compute_dtype=torch.bfloat16, **SERVING)
+                         compute_dtype=torch.bfloat16, mode="packed",
+                         **SERVING)
     gen = torch.Generator(device=dev).manual_seed(1)
     batches = [torch.rand((b, SIZE, SIZE, 3), generator=gen, device=dev)
                for b in REQUESTS]
@@ -572,9 +810,11 @@ def main() -> int:
     # fp32 on the GPU against fp32 on the CPU, 2 images
     small = batches[0][:2]
     g32 = build_detector(variables, anchors, C, (SIZE, SIZE), device=dev,
-                         compute_dtype=torch.float32, **SERVING)(small)
+                         compute_dtype=torch.float32, mode="packed",
+                         **SERVING)(small)
     c32 = build_detector(variables, anchors, C, (SIZE, SIZE), device=cpu,
-                         compute_dtype=torch.float32, **SERVING)(small.cpu())
+                         compute_dtype=torch.float32, mode="packed",
+                         **SERVING)(small.cpu())
     same_detections(detections(c32, 2), detections(g32, 2), 0.32,
                     "packed fp32 GPU vs fp32 CPU")
 
@@ -807,9 +1047,14 @@ def main() -> int:
 
     # ---- 10. roofline ----------------------------------------------------
     roofline_phase(dev, card, variables, timings[ROOF_BATCH], peak)
+
+    # ---- 11. the entry points --------------------------------------------
+    t0 = time.perf_counter()
+    cli_phase(dev, card, variables, anchors, max_err)
+    print(f"entry points: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 11. records -----------------------------------------------------
+    # ---- 12. records -----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

@@ -21,11 +21,14 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     names = _modules()
-    for name in ("ops.nms_cuda", "ops.nms", "models.decode",
-                 "utils.weights", "utils.kernels", "utils.profiling",
-                 "scripts.exp_mxu_shapes", "scripts.roofline",
-                 "scripts.profile_stages", "scripts.compare_revisions",
-                 "scripts.k1_phases", "testing"):
+    for name in ("ops.nms_cuda", "ops.nms", "ops.preprocess",
+                 "models.decode", "utils.weights", "utils.kernels",
+                 "utils.profiling", "utils.coco", "utils.viz", "config",
+                 "data.augment", "cli.common", "cli.detect_image",
+                 "cli.detect_video", "scripts.exp_mxu_shapes",
+                 "scripts.roofline", "scripts.profile_stages",
+                 "scripts.compare_revisions", "scripts.k1_phases",
+                 "testing"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
@@ -33,9 +36,7 @@ def test_every_module_imports_with_jax_blocked():
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m, mod in sys.modules.items()\n"
             "             if (m.split('.')[0] == 'jax' and mod is not None)\n"
-            "             or m.startswith(('yolov3_tensorflow_tpu.models',\n"
-            "                              'yolov3_tensorflow_tpu.ops',\n"
-            "                              'yolov3_tensorflow_tpu.utils')))\n"
+            "             or m.split('.')[0] == 'yolov3_tensorflow_tpu')\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -47,6 +48,16 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_no_source_imports_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
+    offenders = [str(p) for p in PKG_DIR.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_no_source_imports_the_jax_package():
+    """Not even its host-only modules (config, utils.coco, utils.viz,
+    data.augment): the port keeps its own copies."""
+    pattern = re.compile(r"^\s*(import|from)\s+yolov3_tensorflow_tpu\b"
+                         r"(?!_torch)", re.MULTILINE)
     offenders = [str(p) for p in PKG_DIR.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert not offenders, offenders

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from yolov3_tensorflow_tpu import config as jax_config
+from yolov3_tensorflow_tpu.models import layers as jl
 from yolov3_tensorflow_tpu.models import yolov3 as jy
 from yolov3_tensorflow_tpu.ops import fast_postprocess as jfp
 from yolov3_tensorflow_tpu_torch import config as port_config
+from yolov3_tensorflow_tpu_torch.models import layers as tl
 from yolov3_tensorflow_tpu_torch.models import yolov3 as ty
 from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
                                                         spread_head)
@@ -165,3 +167,54 @@ def test_spread_head_same_on_both_trees(torch_vars, jax_vars):
         assert not np.array_equal(sj["params"]["head"][name]["w"],
                                   jax_vars["params"]["head"][name]["w"])
     assert st["batch_stats"] is torch_vars["batch_stats"]
+
+
+def _bf16_values(sign: str) -> np.ndarray:
+    """Every finite bf16 value of one sign with |x| > 1e-30, as float32
+    (bf16 is the top half of a float32). Below 1e-30 the products leave
+    the normal range, where XLA on the CPU flushes subnormals."""
+    bits = np.arange(0x8000, dtype=np.uint32) | (
+        0x8000 if sign == "negative" else 0)
+    vals = (bits << 16).view(np.float32)
+    return vals[np.isfinite(vals) & (np.abs(vals) > 1e-30)]
+
+
+@pytest.mark.parametrize("sign", ["negative", "positive"])
+def test_bf16_leaky_relu_bit_equal_to_jax(sign):
+    """JAX multiplies bf16 x by the weakly typed 0.1 rounded to bf16
+    (0.10009765625); the port's slope is rounded the same way."""
+    vals = _bf16_values(sign)
+    x = torch.from_numpy(vals).to(torch.bfloat16)
+    got = tl.leaky_relu(x)
+    want = np.asarray(jl.leaky_relu(jnp.asarray(vals, jnp.bfloat16)),
+                      np.float32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    if sign == "negative":
+        assert len(vals) > 29000
+        # the fp32 slope rounds thousands of these values another way
+        fp32_slope = torch.nn.functional.leaky_relu(x, 0.1)
+        assert int((fp32_slope != got).sum()) > 1000
+
+
+def test_bf16_conv_folded_epilogue_bit_equal_to_jax():
+    """conv_folded (conv, bias add, LeakyReLU, all in bf16) with an exact
+    1x1 identity conv, on every negative bf16 value of the test above."""
+    vals = _bf16_values("negative")
+    c = 8
+    vals = np.concatenate([vals, vals[:(-len(vals)) % c]])
+    x = vals.reshape(1, 1, -1, c)                          # NHWC
+    eye = np.eye(c, dtype=np.float32)
+    got = tl.conv_folded(
+        torch.from_numpy(x).permute(0, 3, 1, 2),
+        {"w": torch.from_numpy(eye)[:, :, None, None],     # OIHW
+         "b": torch.zeros(c)}, compute_dtype=torch.bfloat16)
+    want = jl.conv_folded(
+        jnp.asarray(x), {"w": jnp.asarray(eye)[None, None],  # HWIO
+                         "b": jnp.zeros(c)}, compute_dtype=jnp.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+    np.testing.assert_array_equal(
+        got, tl.leaky_relu(torch.from_numpy(x).to(torch.bfloat16))
+        .float().numpy())

@@ -219,6 +219,31 @@ def test_batched_nms_matches_jax(max_out, pre_topk, jref):
             np.testing.assert_array_equal(got, one[key].numpy()[v])
 
 
+@pytest.mark.parametrize("batch", [1, 2])
+def test_batched_nms_kernel_hands_the_kernel_contiguous_groups(
+        batch, monkeypatch):
+    """The kernel takes contiguous rows. At batch 1 the per-class sort's
+    slice reshapes to a strided view (the image CLI's exact mode), so the
+    wrapper's caller makes the groups contiguous."""
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    seen = []
+
+    def checking(boxes, valid, iou_thresh):
+        seen.append((boxes.is_contiguous(), valid.is_contiguous()))
+        return nms_keep_mask_reference(boxes, valid, iou_thresh)
+
+    monkeypatch.setattr(nms_cuda, "nms_keep_mask", checking)
+    boxes, scores = _scored_boxes(seed=batch)
+    tb = torch.from_numpy(boxes[:batch])
+    ts = torch.from_numpy(scores[:batch])
+    kw = dict(max_out=20, pre_topk=128, score_thresh=0.3, iou_thresh=0.5)
+    got = batched_nms_kernel(tb, ts, **kw)
+    assert seen == [(True, True)]
+    want = batched_nms(tb, ts, **kw)
+    for key in ("boxes", "scores", "labels", "valid"):
+        np.testing.assert_array_equal(got[key].numpy(), want[key].numpy())
+
+
 def test_cpu_tensors_take_the_plain_version():
     case = CASES["random_k200"]
     before = nms_keep_mask.launches

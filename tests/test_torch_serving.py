@@ -116,20 +116,23 @@ def spread_vars():
 
 
 def _detector_matches_jax(mode, spread_vars):
+    """mode None builds both packages' default detectors."""
     size = 96
     kw = dict(max_out=128, box_topk=64, score_thresh=SCORE_T,
               iou_thresh=0.45)
+    if mode is not None:
+        kw["mode"] = mode
     rng = np.random.default_rng(96)
     img = rng.uniform(0, 1, (2, size, size, 3)).astype(np.float32)
 
     det = build_detector(from_jax_variables(spread_vars, device=CPU), ANCHORS,
                          C, (size, size), device=CPU,
-                         compute_dtype=torch.float32, mode=mode, **kw)
+                         compute_dtype=torch.float32, **kw)
     assert not det.training
     got = det(torch.from_numpy(img))
     jdet = jax_build_detector(spread_vars, ANCHORS, C, (size, size),
-                              mode=mode, compute_dtype=jnp.float32,
-                              use_pallas=False, **kw)
+                              compute_dtype=jnp.float32, use_pallas=False,
+                              **kw)
     want = jax.device_get(jdet(jnp.asarray(img)))
 
     assert got["boxes"].shape == (2, C * 128, 4)
@@ -148,11 +151,11 @@ def _detector_matches_jax(mode, spread_vars):
     assert n_w >= 20 and n_g >= 20, f"only {n_w} / {n_g} confident detections"
     assert found_w == n_w, f"port misses {n_w - found_w} of {n_w} detections"
     assert found_g == n_g, f"port adds {n_g - found_g} of {n_g} detections"
-    return got
+    return got, det
 
 
 def test_detector_end_to_end_matches_jax(spread_vars):
-    got = _detector_matches_jax("packed", spread_vars)
+    got, _ = _detector_matches_jax("packed", spread_vars)
     # pack/unpack is the detections_to_numpy contract in one buffer
     packed = pack_detections(got)
     for i in range(2):
@@ -163,11 +166,18 @@ def test_detector_end_to_end_matches_jax(spread_vars):
 
 @pytest.mark.parametrize("mode", ["exact", "prefilter"])
 def test_folded_detector_matches_jax(mode, spread_vars):
-    got = _detector_matches_jax(mode, spread_vars)
+    got, _ = _detector_matches_jax(mode, spread_vars)
     if mode == "exact":
         # rows are score-descending within each class group
         s = torch.where(got["valid"], got["scores"], -1.0).view(2, C, 128)
         assert bool((s[..., :-1] >= s[..., 1:]).all())
+
+
+def test_build_detector_default_is_prefilter_as_in_jax(spread_vars):
+    """With no mode, both packages build the prefilter detector (JAX:
+    mode=None with fast=True), and they find the same detections."""
+    _, det = _detector_matches_jax(None, spread_vars)
+    assert isinstance(det, tpp.FoldedDetector) and det.mode == "prefilter"
 
 
 def test_build_detector_defers_other_modes(spread_vars):

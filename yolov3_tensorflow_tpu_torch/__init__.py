@@ -11,7 +11,15 @@ reference's module names so that each counterpart is easy to find:
 - `models.decode`: anchor decode of the raw feature maps
 - `ops.fast_postprocess`, `ops.postprocess`: the packed serving head, the
   candidate prefilter, the exact postprocess and `build_detector` with the
-  "packed", "exact" and "prefilter" modes
+  "prefilter" (default), "packed" and "exact" modes
+- `ops.preprocess`: the device letterbox of raw uint8 frames and the
+  streaming detector (BGR flip, letterbox and detector in one call)
+- `cli.detect_image`, `cli.detect_video`: the image and video demos, on the
+  GPU by default (`--device cpu` runs them without one); `cli.common`
+  loads anchors, class names and `.weights` files
+- `config`, `utils.coco`, `utils.viz`, `data.augment`: host helpers copied
+  from the JAX package (anchor and names files, class names, drawing, the
+  host letterbox)
 - `ops.nms`: the plain per-class NMS and the numpy oracles
 - `ops.nms_cuda`: the shared-candidate and the per-group NMS, hand-written
   CUDA kernels (`csrc/nms_shared.cu`, `csrc/nms.cu`) with their plain
@@ -24,8 +32,9 @@ reference's module names so that each counterpart is easy to find:
   with their plain versions; `scripts.roofline`: the per-layer roofline
   from measured constants; `scripts.profile_stages`: the stage profiler
 
-The package imports torch and numpy, never jax. Every function takes its
-device from its tensors or from an explicit `device` argument.
+The package imports torch, numpy and cv2, never jax, and no module of the
+JAX package. Every function takes its device from its tensors or from an
+explicit `device` argument.
 """
 
 __version__ = "0.1.0"

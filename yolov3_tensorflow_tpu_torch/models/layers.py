@@ -8,11 +8,13 @@ package's NHWC at their boundary, which costs no copy because a contiguous
 NHWC tensor permuted to NCHW already is channels_last.
 
 Rounding follows the JAX package: each conv emits `compute_dtype`, and the
-bias add and LeakyReLU run in that dtype (bf16 on the GPU).
+bias add and LeakyReLU run in that dtype (bf16 on the GPU), with the
+LeakyReLU slope rounded to that dtype as JAX rounds it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -33,10 +35,21 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
-    """LeakyReLU(0.1). `F.leaky_relu` computes `x * alpha` in float and
-    rounds once to x's dtype, the same value as the JAX package's
-    `where(x >= 0, x, alpha * x)` in bf16, in one pass instead of three."""
-    return F.leaky_relu(x, alpha)
+    """LeakyReLU(0.1), in one pass. The JAX package computes
+    `where(x >= 0, x, alpha * x)`, where the weakly typed `alpha` takes x's
+    dtype: in bf16 the slope is bf16(0.1) = 0.10009765625. `F.leaky_relu`
+    multiplies in float by the slope it is given and rounds once to x's
+    dtype, so it is given the slope rounded to x's dtype; the product of
+    two bf16 values is exact in float, and the result is JAX's, bit for
+    bit."""
+    return F.leaky_relu(x, _slope(alpha, x.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _slope(alpha: float, dtype: torch.dtype) -> float:
+    """`alpha` rounded to `dtype`, once per pair: a tensor made per call
+    would cost host time on every activation."""
+    return float(torch.tensor(alpha, dtype=dtype))
 
 
 def _channel(v: torch.Tensor) -> torch.Tensor:

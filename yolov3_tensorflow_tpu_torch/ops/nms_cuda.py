@@ -344,7 +344,9 @@ def batched_nms_kernel(boxes: torch.Tensor, scores: torch.Tensor, *,
     top_scores, top_boxes, valid = select_per_class(boxes, scores, pre_topk,
                                                     score_thresh)
     k = top_scores.shape[-1]
-    keep = nms_keep_mask(top_boxes.reshape(b * c, k, 4),
-                         valid.reshape(b * c, k), iou_thresh)
+    # at B=1 the reshape of the sliced sort is a strided view, and the
+    # kernel takes contiguous rows
+    keep = nms_keep_mask(top_boxes.reshape(b * c, k, 4).contiguous(),
+                         valid.reshape(b * c, k).contiguous(), iou_thresh)
     return compact_per_class(keep.view(b, c, k), top_scores, top_boxes,
                              max_out)

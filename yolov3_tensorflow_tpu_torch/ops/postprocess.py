@@ -132,12 +132,24 @@ class FoldedDetector(nn.Module):
                            self.img_size, pre_topk=self.pre_topk, **kw)
 
 
+def check_mode(mode: str) -> None:
+    """Raise unless `build_detector` can build `mode`: NotImplementedError
+    naming the ROADMAP item for a JAX mode not ported yet, ValueError for
+    an unknown one. The CLIs call it before they load any weights."""
+    if mode in ("packed", "exact", "prefilter"):
+        return
+    where = _DEFERRED_MODES.get(mode)
+    if where is None:
+        raise ValueError(f"unknown detector mode {mode!r}")
+    raise NotImplementedError(f"mode={mode!r} is not ported yet: {where}")
+
+
 def build_detector(variables, anchors: np.ndarray, num_classes: int,
                    img_size: Tuple[int, int], *, device: torch.device,
                    max_out: int = 200, pre_topk: int = 256,
                    score_thresh: float = 0.3, iou_thresh: float = 0.45,
                    compute_dtype: torch.dtype = torch.bfloat16,
-                   box_topk: int = 256, mode: str = "packed") -> nn.Module:
+                   box_topk: int = 256, mode: str = "prefilter") -> nn.Module:
     """Build the end-to-end detector on `device`.
 
     variables: this package's tree (see models.convert.from_jax_variables,
@@ -145,6 +157,12 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
     Default thresholds are the demo scripts' (max 200 boxes per class,
     score 0.3, iou 0.45). Modes:
 
+      "prefilter" (the default, as in the JAX package) the folded
+                  forward's maps through the objectness prefilter over
+                  box_topk candidates and the shared-candidate NMS
+                  (pre_topk=min(pre_topk, box_topk) on the CPU route);
+                  equal to "exact" whenever no more than box_topk boxes
+                  pass the score threshold.
       "packed"    the serving path: one detection conv per scale with
                   128-wide per-anchor blocks, candidate selection by the
                   class-lane-masked objectness over box_topk candidates,
@@ -154,20 +172,11 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                   thresholds: decode of every anchor, each class's
                   pre_topk best, and the per-group NMS kernel. Rows are
                   score-descending within each class group.
-      "prefilter" the folded forward's maps through the objectness
-                  prefilter over box_topk candidates and the
-                  shared-candidate NMS (pre_topk=min(pre_topk, box_topk)
-                  on the CPU route); equal to "exact" whenever no more
-                  than box_topk boxes pass the score threshold.
 
     The JAX package's "split", "stem8" and "int8" modes raise
     NotImplementedError naming the ROADMAP item that ports them.
     """
-    if mode not in ("packed", "exact", "prefilter"):
-        where = _DEFERRED_MODES.get(mode)
-        if where is None:
-            raise ValueError(f"unknown detector mode {mode!r}")
-        raise NotImplementedError(f"mode={mode!r} is not ported yet: {where}")
+    check_mode(mode)
     variables = {part: {scope: {name: {k: v.to(device) for k, v in p.items()}
                                 for name, p in tree.items()}
                         for scope, tree in variables[part].items()}

@@ -181,7 +181,8 @@ def shared_candidates(device: torch.device) -> Dict[str, Dict]:
     batches = [torch.rand((b, SIZE, SIZE, 3), generator=gen, device=device)
                for b in REQUESTS]
     det = build_detector(variables, anchors, C, (SIZE, SIZE), device=device,
-                         compute_dtype=torch.bfloat16, **SERVING)
+                         compute_dtype=torch.bfloat16, mode="packed",
+                         **SERVING)
     pre = build_detector(variables, anchors, C, (SIZE, SIZE), device=device,
                          compute_dtype=torch.bfloat16, mode="prefilter",
                          box_topk=BOX_TOPK, **DEMO)
