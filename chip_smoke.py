@@ -107,7 +107,25 @@ Phases, in order; any failure exits non-zero before the last line:
    CPU's on 2 frames (same label, IoU >= 0.9, score >= 0.32); ms per call
    (host gaps included) and device busy time at frame batch 1 and 8, and
    the pinned uint8 host-to-device copy alone.
-12. prints the kernel record and the device record as JSON; the last line
+12. training: 64 + 8 + 8 seeded synthetic 416^2 images in a temporary
+   directory (`data.synthetic.generate_dataset`, labels 0..2 under the
+   COCO-80 head). One fp32 momentum step (TF32 off) of the seed-0 tree on a
+   loader batch of 2 on the GPU and on the CPU: loss terms within 1e-4,
+   BN moving statistics within 1e-5, each leaf's update within 1e-3 of
+   its largest, or within twice the GPU's own noise (the step on the batch
+   in reverse order), whichever is larger. 30 bf16 Adam steps at batch 8
+   must halve the loss. K2 bit-equal to its plain version on the eval
+   step's own candidates after them (G = 640, K = 1024). cli.train on the
+   GPU with the reference recipe (momentum, piecewise with a 1-epoch
+   warm-up, mixup, color distortion, label smoothing, focal loss,
+   multi-scale), batch 8, 3 epochs: rc 0, finite losses, a best_model_
+   checkpoint, K2 once per in-train evaluation and per validation batch;
+   then 4 epochs with auto_resume, which resumes from the newest checkpoint
+   and ends at step 32. Timings: the bf16 train step at batch 8 and 32
+   (device-resident batches; ms per step with host gaps, device busy time,
+   idle share, peak memory, share of 3x the forward's roofline bound), the
+   host loader alone in images/s, cli.train's StepTimer p50.
+13. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -118,6 +136,7 @@ Phases, in order; any failure exits non-zero before the last line:
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -161,6 +180,9 @@ CLI_FRAMES = 24                        # frames of the input video
 STREAM = dict(max_out=200, score_thresh=0.3, iou_thresh=0.45)
 STREAM_BATCHES = (1, 8)                # frame batches timed
 LETTERBOX_ATOL = 0.01 / 255            # device_letterbox, GPU vs CPU
+LEARN_STEPS = 30                       # bf16 Adam steps; the loss must halve
+TRAIN_IMAGES = 64                      # cli.train's training set (8 batches)
+TRAIN_BATCHES = (8, 32)                # train step batches timed
 
 
 def fail(msg: str) -> None:
@@ -688,6 +710,356 @@ def cli_phase(dev: torch.device, card: str, variables: dict,
               f"{x.numel() / ms / 1e6:.1f} GB/s [{card}]")
 
 
+def to_device(tree, dev: torch.device):
+    """A nest of dicts of tensors (and numbers) on `dev`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def train_config(compute_dtype: str, optimizer: str, **train):
+    """A finalized COCO-80 Config with a fixed learning rate and no freeze."""
+    from yolov3_tensorflow_tpu_torch.config import Config
+    cfg = Config()
+    cfg.model.compute_dtype = compute_dtype
+    cfg.train.optimizer = optimizer
+    cfg.train.lr_type = "fixed"
+    cfg.train.learning_rate_init = 1e-3
+    cfg.train.use_warm_up = False
+    cfg.train.update_part = None
+    for key, value in train.items():
+        setattr(cfg.train, key, value)
+    return cfg.finalize(count_files=False)
+
+
+def train_step_fn(cfg):
+    """(make_train_step(cfg, optimizer), optimizer) for a Config."""
+    from yolov3_tensorflow_tpu_torch.train.optimizers import build_optimizer
+    from yolov3_tensorflow_tpu_torch.train.schedules import build_schedule
+    from yolov3_tensorflow_tpu_torch.train.trainer import make_train_step
+    sched = build_schedule(cfg)
+    opt = build_optimizer(cfg.train.optimizer, sched)
+    return make_train_step(cfg, opt, schedule=sched), opt
+
+
+def fresh_state(opt, dev: torch.device) -> dict:
+    """The seed-0 init_yolov3 tree on `dev`, with its optimizer state."""
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import init_yolov3
+    v = to_device(init_yolov3(torch.Generator().manual_seed(0), C,
+                              device=torch.device("cpu")), dev)
+    return {"params": v["params"], "batch_stats": v["batch_stats"],
+            "opt_state": opt.init(v["params"]), "step": 0}
+
+
+def fro(got, want) -> float:
+    """|got - want| / |want| in the Frobenius norm."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def one_step_check(dev: torch.device, card: str, batch) -> None:
+    """Training, part 1: one fp32 momentum step (TF32 off) of the same
+    seed-0 tree on the same loader batch of 2 at 416^2, on the GPU and on
+    the CPU. fp32 training-mode batch norm amplifies rounding through 72
+    layers (tests/test_torch_train_model.py), so the gradient of some leaves
+    is reproducible only to a few percent, by either device alone; the
+    GPU's noise is measured as the same step on the batch in reverse order
+    (the same step mathematically). Checks, each relative to the largest
+    magnitude: every loss term within 1e-4 or twice its noise; the BN moving
+    statistics within 1e-5 or twice the largest noise of any leaf; the
+    updates of the detection convs (which no batch norm precedes) within
+    1e-3; every leaf's update, in norm, within 1e-3 or twice the largest
+    noise of any leaf; all updates together within 1e-3 or twice their
+    noise. It prints how many leaves lie past 1e-3 in their largest
+    element."""
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import DETECTION_CONVS
+    from yolov3_tensorflow_tpu_torch.train.optimizers import flatten
+    cpu = torch.device("cpu")
+    step, opt = train_step_fn(train_config("float32", "momentum"))
+
+    def run(device, order):
+        state = fresh_state(opt, device)
+        images = torch.from_numpy(batch.images[order].copy()).to(device)
+        y_true = tuple(torch.from_numpy(y[order].copy()).to(device)
+                       for y in batch.y_true)
+        t0 = time.perf_counter()
+        new, metrics = step(state, images, y_true)
+        metrics = {k: v for k, v in metrics.items() if k != "lr"}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        before = flatten(state["params"])
+        updates = {p: (t - before[p]).cpu()
+                   for p, t in flatten(new["params"]).items()}
+        return (to_device(metrics, cpu), flatten(to_device(
+            new["batch_stats"], cpu)), updates, wall)
+
+    fwd, rev = slice(None), slice(None, None, -1)
+    g, g_rev, c = run(dev, fwd), run(dev, rev), run(cpu, fwd)
+    print(f"training one step (fp32, momentum, batch 2 at {SIZE}^2, seed-0 "
+          f"init): GPU {g[3]:.2f} s, CPU {c[3]:.2f} s wall (first calls)")
+
+    def within(err, tol, noise, what):
+        check(err <= max(tol, 2 * noise), f"training one step: {what} GPU "
+              f"vs CPU {err:.3g}, over {tol} and twice the GPU's reorder "
+              f"noise {noise:.3g}")
+
+    for k in sorted(c[0]):
+        within(rel_err(g[0][k], c[0][k]), 1e-4, rel_err(g_rev[0][k], g[0][k]),
+               f"loss {k}")
+    print("  loss terms GPU / CPU: " + ", ".join(
+        f"{k} {float(g[0][k]):.6f} / {float(c[0][k]):.6f}"
+        for k in ("total", "xy", "wh", "conf", "class", "l2")))
+    stats_noise = max(rel_err(g_rev[1][p], g[1][p]) for p in c[1])
+    stats_err = {p: rel_err(g[1][p], c[1][p]) for p in c[1]}
+    for p, err in stats_err.items():
+        within(err, 1e-5, stats_noise, f"BN statistics {p}")
+    u_g, u_rev, u_c = g[2], g_rev[2], c[2]
+    det = [f"head/{n}/{k}" for n in DETECTION_CONVS for k in ("w", "b")]
+    for p in det:
+        within(rel_err(u_g[p], u_c[p]), 1e-3, 0.0, f"update of {p}")
+    leaf_noise = max(fro(u_rev[p], u_g[p]) for p in u_c)
+    leaf_err = {p: fro(u_g[p], u_c[p]) for p in u_c}
+    for p, err in leaf_err.items():
+        within(err, 1e-3, leaf_noise, f"update of {p} (norm)")
+
+    def whole(d):
+        return torch.cat([d[p].reshape(-1) for p in u_c])
+    all_err, all_noise = fro(whole(u_g), whole(u_c)), fro(whole(u_rev),
+                                                           whole(u_g))
+    within(all_err, 1e-3, all_noise, "all updates (norm)")
+    past = sum(rel_err(u_g[p], u_c[p]) > 1e-3 for p in u_c)
+    worst = max((e, p) for p, e in leaf_err.items())
+    det_worst = max(rel_err(u_g[p], u_c[p]) for p in det)
+    print(f"  BN moving statistics: {len(c[1])} leaves, worst "
+          f"{max(stats_err.values()):.3g} of the leaf's largest (GPU noise "
+          f"{stats_noise:.3g}); updates: {len(u_c)} leaves, all together "
+          f"{all_err:.3g} in norm (GPU noise {all_noise:.3g}), worst leaf "
+          f"{worst[0]:.3g} ({worst[1]}; GPU noise up to {leaf_noise:.3g}), "
+          f"detection convs worst {det_worst:.3g} of their largest, "
+          f"{past} leaves past 1e-3 in their largest "
+          f"element [{card}]")
+
+
+def learning_check(dev: torch.device, card: str, ann: str, anchors):
+    """Training, part 2: 30 bf16 Adam steps (lr 1e-3) on 8 synthetic 416^2
+    images (labels 0..2 under the 80-class head), one loader batch per step;
+    the mean of the last 3 totals must be under half the first 3's. Returns
+    the trained state and the last batch."""
+    from yolov3_tensorflow_tpu_torch.data.loader import DataLoader
+    step, opt = train_step_fn(train_config("bfloat16", "adam"))
+    state = fresh_state(opt, dev)
+    loader = DataLoader(ann, C, anchors, 8, (SIZE, SIZE), mode="train",
+                        use_mix_up=False, use_color_distort=False,
+                        num_threads=8, seed=0)
+    totals = []
+    t0 = time.perf_counter()
+    for i in range(LEARN_STEPS):
+        batch = next(iter(loader.epoch(i)))
+        state, metrics = step(
+            state, torch.from_numpy(batch.images).to(dev),
+            tuple(torch.from_numpy(y).to(dev) for y in batch.y_true))
+        totals.append(metrics["total"])
+    totals = torch.stack(totals).tolist()
+    first, last = np.mean(totals[:3]), np.mean(totals[-3:])
+    print(f"training learns: {LEARN_STEPS} bf16 Adam steps at batch 8, "
+          f"{SIZE}^2, in {time.perf_counter() - t0:.1f} s wall: total loss "
+          f"{', '.join(f'{t:.1f}' for t in totals[:3])} ... "
+          f"{', '.join(f'{t:.1f}' for t in totals[-3:])}; first 3 mean "
+          f"{first:.2f}, last 3 mean {last:.2f} [{card}]")
+    check(np.isfinite(totals).all(), "training learns: a loss is not finite")
+    check(last < first / 2, f"training learns: the loss did not halve "
+                            f"({first:.2f} -> {last:.2f})")
+    return state, batch
+
+
+def cli_train_runs(dev: torch.device, card: str, tmp: Path) -> float:
+    """Training, part 3: cli.train on the GPU with the reference recipe
+    (momentum, piecewise lr with a 1-epoch warm-up, mixup, color
+    distortion, label smoothing, focal loss, multi-scale over the default
+    sizes), bf16, on 64 train and 8 val synthetic 416^2 images: batch 8,
+    3 epochs, in-train evaluation every 8 steps, validation every epoch
+    from epoch 1. Then a second run with 4 epochs and auto_resume resumes
+    from the newest checkpoint (the last run's best, at step 16 or 24) and
+    trains to the end of epoch 4, step 32. K2's launches are
+    counted in each run: once per in-train evaluation (every 8th global
+    step) and once per validation batch. Returns the first run's StepTimer
+    p50 (ms)."""
+    import contextlib
+    import io
+    import re
+
+    from yolov3_tensorflow_tpu_torch.cli import train as cli_train
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    argv = ["--device", str(dev),
+            f"data.train_file={tmp / 'train' / 'train.txt'}",
+            f"data.val_file={tmp / 'val' / 'val.txt'}",
+            "train.batch_size=8", "train.train_evaluation_step=8",
+            "train.val_evaluation_epoch=1", "train.warm_up_epoch=1",
+            f"train.save_dir={tmp / 'ckpt'}", f"train.log_dir={tmp / 'logs'}",
+            f"train.progress_log_path={tmp / 'progress.log'}"]
+    steps_per_epoch = TRAIN_IMAGES // 8
+    p50 = None
+    for epochs, resume in ((3, False), (4, True)):
+        run_argv = argv + [f"train.total_epochs={epochs}",
+                           f"train.auto_resume={str(resume).lower()}"]
+        before = set(os.listdir(tmp / "ckpt")) if resume else set()
+        torch.cuda.synchronize()
+        nms_cuda.nms_keep_mask.launches = 0
+        nms_cuda.nms_keep_mask_shared.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_train.main(run_argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2 = nms_cuda.nms_keep_mask.launches
+        text = out.getvalue()
+        log = (tmp / "progress.log").read_text()
+        check(rc == 0, f"cli.train ({epochs} epochs) returned {rc}")
+        losses = [float(v) for v in re.findall(r"loss: total: (\S+),", log)]
+        check(losses and np.isfinite(losses).all(),
+              f"cli.train ({epochs} epochs): losses {losses}")
+        resumed_at = 0
+        if resume:
+            m = re.search(r"auto-resumed from (\S+) at step (\d+)", text)
+            check(m is not None, "cli.train did not auto-resume")
+            latest, resumed_at = Path(m.group(1)).name, int(m.group(2))
+            saved = int(re.search(r"_step_(\d+)_", latest).group(1))
+            check(latest in before and resumed_at == saved,
+                  f"cli.train resumed from {latest} at step {resumed_at}")
+        ends = [int(s) for s in re.findall(r"global_step: (\d+)", log)]
+        check(ends and max(ends) == epochs * steps_per_epoch,
+              f"cli.train ({epochs} epochs) ended at step "
+              f"{max(ends) if ends else None}")
+        first_epoch = resumed_at // steps_per_epoch
+        evals = epochs * steps_per_epoch // 8 - resumed_at // 8
+        vals = sum(1 for e in range(first_epoch, epochs) if e >= 1)
+        best = [n for n in os.listdir(tmp / "ckpt")
+                if n.startswith("best_model_")]
+        check(best, "cli.train wrote no best_model_ checkpoint")
+        check(k2 == evals + vals and nms_cuda.nms_keep_mask_shared.launches
+              == 0, f"cli.train ({epochs} epochs): nms launches {k2}, want "
+                    f"{evals} in-train evaluations + {vals} validation "
+                    f"batches")
+        times = re.findall(r"step time: p50 (\S+) ms", log)
+        if not resume:
+            p50 = float(times[-1])
+        how = f", auto-resumed at step {resumed_at}" if resume else ""
+        print(f"cli.train, {epochs} epochs{how}: "
+              f"rc {rc}, {wall:.1f} s wall, steps to {max(ends)}, losses "
+              f"{losses[0]:.2f} .. {losses[-1]:.2f}, nms launches {k2} "
+              f"({evals} in-train evaluations + {vals} validation batches), "
+              f"checkpoints {sorted(os.listdir(tmp / 'ckpt'))}; StepTimer "
+              f"p50 per epoch {', '.join(times)} ms [{card}]")
+    return p50
+
+
+def train_phase(dev: torch.device, card: str, anchors: np.ndarray,
+                max_err: dict) -> None:
+    """Phase 12: training (see the module docstring)."""
+    from yolov3_tensorflow_tpu_torch.data.loader import DataLoader
+    from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
+    from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import yolov3_forward
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.nms import select_per_class
+    from yolov3_tensorflow_tpu_torch.scripts import roofline
+    from yolov3_tensorflow_tpu_torch.utils.profiling import device_busy_ms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        train = generate_dataset(str(tmp / "train"), TRAIN_IMAGES, seed=0,
+                                 img_size=(SIZE, SIZE), prefix="train")
+        generate_dataset(str(tmp / "val"), 8, seed=1, img_size=(SIZE, SIZE),
+                         prefix="val")
+        learn = generate_dataset(str(tmp / "learn"), 8, seed=2,
+                                 img_size=(SIZE, SIZE), prefix="learn")
+        print(f"training data: {TRAIN_IMAGES} + 8 + 8 synthetic {SIZE}^2 "
+              f"images in {time.perf_counter() - t0:.1f} s")
+
+        # ---- part 1: one step, GPU against CPU
+        two = next(iter(DataLoader(train["annotation_file"], C, anchors, 2,
+                                   (SIZE, SIZE), mode="train",
+                                   use_mix_up=False, num_threads=2,
+                                   seed=0).epoch(0)))
+        one_step_check(dev, card, two)
+
+        # ---- part 2: learning on the card
+        state, batch = learning_check(dev, card, learn["annotation_file"],
+                                      anchors)
+
+        # ---- part 4: K2 on the eval step's own candidates
+        cfg = train_config("bfloat16", "adam")
+        with torch.no_grad():
+            images = torch.from_numpy(batch.images).to(dev)
+            fmaps, _ = yolov3_forward(
+                {"params": state["params"], "batch_stats":
+                 state["batch_stats"]}, images, train=False,
+                compute_dtype=torch.bfloat16)
+            boxes, confs, probs = predict_boxes(fmaps, anchors, C,
+                                                (SIZE, SIZE))
+            _, top_boxes, valid = select_per_class(
+                boxes, confs * probs, cfg.eval.pre_nms_topk,
+                cfg.eval.score_threshold)
+            b, _, k = valid.shape
+            max_err["nms"] = max(max_err["nms"], keep_mask_error(
+                top_boxes.reshape(b * C, k, 4).contiguous(),
+                valid.reshape(b * C, k).contiguous(),
+                cfg.eval.nms_threshold, f"eval-step candidates (after "
+                f"{LEARN_STEPS} steps)"))
+
+        # ---- part 3: cli.train
+        p50 = cli_train_runs(dev, card, tmp)
+
+        # ---- part 5: timings
+        step, opt = train_step_fn(train_config("bfloat16", "momentum"))
+        fresh = fresh_state(opt, dev)
+        for b in TRAIN_BATCHES:
+            reps = b // batch.images.shape[0]
+            images = torch.from_numpy(np.tile(batch.images, (reps, 1, 1, 1))
+                                      ).to(dev)
+            y_true = tuple(torch.from_numpy(np.tile(
+                y, (reps,) + (1,) * (y.ndim - 1))).to(dev)
+                for y in batch.y_true)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for _ in range(3):
+                step(fresh, images, y_true)
+            ms = call_ms(lambda: step(fresh, images, y_true), 10)
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            busy = device_busy_ms(lambda: step(fresh, images, y_true), 3)
+            bound = 3 * roofline.roofline(
+                b, (SIZE, SIZE), roofline.H100_PEAKS["bf16"] / 1e12,
+                roofline.H100_PEAKS["hbm"] / 1e9)["t_bound"]
+            print(f"train step batch {b} at {SIZE}^2 (bf16, momentum, no "
+                  f"freeze, device-resident batch): {ms:.3f} ms/step "
+                  f"(host gaps included), {b * 1000.0 / ms:.1f} img/s; "
+                  f"device busy {busy:.3f} ms/step, idle share "
+                  f"{max(0.0, 1 - busy / ms):.3f}; peak memory {peak:.2f} "
+                  f"GiB; bound {bound * 1e3:.3f} ms (3x the forward's "
+                  f"roofline bound, published peaks): "
+                  f"{bound * 1e3 / ms * 100:.1f}% of it [{card}]")
+        loader = DataLoader(train["annotation_file"], C, anchors, 8,
+                            (SIZE, SIZE), mode="train", use_mix_up=True,
+                            use_color_distort=True, seed=0)
+        for epoch in range(2):                      # the first warms up
+            t0 = time.perf_counter()
+            n = sum(b.images.shape[0] for b in loader.epoch(epoch))
+            wall = time.perf_counter() - t0
+        print(f"host loader alone ({loader.num_threads} threads, {SIZE}^2, "
+              f"mixup and color distortion on, batch 8): {n} images in "
+              f"{wall:.2f} s, {n / wall:.1f} images/s; cli.train StepTimer "
+              f"p50 {p50:.1f} ms/step [{card}]")
+
+
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1054,7 +1426,13 @@ def main() -> int:
     print(f"entry points: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 12. records -----------------------------------------------------
+    # ---- 12. training ----------------------------------------------------
+    t0 = time.perf_counter()
+    train_phase(dev, card, anchors, max_err)
+    print(f"training: {time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
+
+    # ---- 13. records -----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

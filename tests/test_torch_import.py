@@ -1,4 +1,5 @@
-"""The PyTorch port imports without jax: the GPU machine it runs on has none."""
+"""The PyTorch port imports without jax, optax or orbax: the GPU machine it
+runs on has none of them."""
 
 import pkgutil
 import re
@@ -28,14 +29,21 @@ def test_every_module_imports_with_jax_blocked():
                  "cli.detect_video", "scripts.exp_mxu_shapes",
                  "scripts.roofline", "scripts.profile_stages",
                  "scripts.compare_revisions", "scripts.k1_phases",
-                 "testing"):
+                 "testing", "models.layers", "models.yolov3", "ops.boxes",
+                 "ops.losses", "data.annotations", "data.encoder",
+                 "data.loader", "data.synthetic", "evaluation.metrics",
+                 "evaluation.voc", "utils.summary", "train.schedules",
+                 "train.optimizers", "train.checkpoint", "train.trainer",
+                 "cli.train"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
-            "sys.modules['jax'] = None\n"
+            "for blocked in ('jax', 'optax', 'orbax'):\n"
+            "    sys.modules[blocked] = None\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m, mod in sys.modules.items()\n"
-            "             if (m.split('.')[0] == 'jax' and mod is not None)\n"
+            "             if (m.split('.')[0] in ('jax', 'optax', 'orbax')\n"
+            "                 and mod is not None)\n"
             "             or m.split('.')[0] == 'yolov3_tensorflow_tpu')\n"
             "assert not bad, bad\n"
             "print('ok')\n")
@@ -47,7 +55,8 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_source_imports_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|optax|orbax)\b",
+                         re.MULTILINE)
     offenders = [str(p) for p in PKG_DIR.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert not offenders, offenders

@@ -1,12 +1,23 @@
 """yolov3_tensorflow_tpu_torch — the PyTorch / CUDA port of yolov3_tensorflow_tpu.
 
 The JAX package (`yolov3_tensorflow_tpu`) is the reference; this package
-re-implements its inference path for an NVIDIA Hopper GPU and keeps the
-reference's module names so that each counterpart is easy to find:
+re-implements its inference and training paths for an NVIDIA Hopper GPU
+and keeps the reference's module names so that each counterpart is easy to
+find:
 
 - `models.layers`, `models.yolov3`: the BN-folded Darknet-53 + FPN forward
-  over plain param dicts keyed by the JAX paths (`backbone/conv_i`,
-  `head/conv_i`), convs in channels_last on cuDNN
+  and the live-BN training and eval forward (`yolov3_forward`) over plain
+  param dicts keyed by the JAX paths (`backbone/conv_i`, `head/conv_i`),
+  convs in channels_last on cuDNN
+- `ops.losses`: the YOLOv3 loss and the L2 penalty
+- `train.schedules`, `train.optimizers`, `train.checkpoint`,
+  `train.trainer`, `cli.train`: learning-rate schedules, optimizers with
+  optax's semantics, checkpoints, the Trainer (in-train evaluation and
+  validation through the per-group NMS kernel) and its entry point, on the
+  GPU by default (`--device cpu` trains without one)
+- `data` (annotations, augmentation, label encoding, the threaded loader,
+  the synthetic dataset), `evaluation` (batch metrics, VOC mAP),
+  `utils.summary`: host modules copied from the JAX package
 - `models.convert`: JAX variable trees (numpy leaves) -> this package's trees
 - `models.decode`: anchor decode of the raw feature maps
 - `ops.fast_postprocess`, `ops.postprocess`: the packed serving head, the
@@ -17,9 +28,8 @@ reference's module names so that each counterpart is easy to find:
 - `cli.detect_image`, `cli.detect_video`: the image and video demos, on the
   GPU by default (`--device cpu` runs them without one); `cli.common`
   loads anchors, class names and `.weights` files
-- `config`, `utils.coco`, `utils.viz`, `data.augment`: host helpers copied
-  from the JAX package (anchor and names files, class names, drawing, the
-  host letterbox)
+- `config`, `utils.coco`, `utils.viz`: host helpers copied from the JAX
+  package (the config tree, anchor and names files, class names, drawing)
 - `ops.nms`: the plain per-class NMS and the numpy oracles
 - `ops.nms_cuda`: the shared-candidate and the per-group NMS, hand-written
   CUDA kernels (`csrc/nms_shared.cu`, `csrc/nms.cu`) with their plain

@@ -1,2 +1,3 @@
-"""Command-line entry points of the port (the inference subset of the JAX
-package's `cli`)."""
+"""Command-line entry points of the port: the image and video demos and
+training (the JAX package's `cli` without evaluate, convert_weights,
+strip_checkpoint, kmeans_anchors and parse_voc, which are not ported yet)."""

@@ -1,2 +1,3 @@
-"""Host-side data helpers (the inference subset of the JAX package's
-`data`)."""
+"""Host-side data: annotations, augmentation, label encoding, the threaded
+loader and the synthetic dataset (copies of the JAX package's host
+modules)."""

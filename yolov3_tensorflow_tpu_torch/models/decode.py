@@ -8,10 +8,35 @@ y_max). Everything is fp32; feature maps are NHWC, as the JAX package's.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small float32 constant on `device`, copied there once per
+    (values, device): a blocking host-to-device copy made on every call
+    would wait for all the work queued on the device (the train step made
+    12 of them). Made outside inference mode, so that a constant first
+    made by a serving call can enter a training step's autograd graph."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def device_anchors(anchors: np.ndarray, device: torch.device) -> torch.Tensor:
+    """anchors [..., 2] (w, h) as a float32 tensor on `device` (cached)."""
+    return _constant(tuple(map(tuple, np.asarray(anchors, np.float32)
+                               .reshape(-1, 2).tolist())), device)
+
+
+def grid_ratio(img_size: Tuple[int, int], hg: int, wg: int,
+               device: torch.device) -> torch.Tensor:
+    """(img_w / wg, img_h / hg), input pixels per grid cell, on `device`."""
+    img_h, img_w = img_size
+    return _constant((float(img_w) / wg, float(img_h) / hg), device)
 
 
 def decode_feature_map(feature_map: torch.Tensor, anchors: np.ndarray,
@@ -29,9 +54,7 @@ def decode_feature_map(feature_map: torch.Tensor, anchors: np.ndarray,
     """
     n, hg, wg = feature_map.shape[:3]
     dev = feature_map.device
-    img_h, img_w = img_size
-    ratio = torch.tensor([float(img_w) / wg, float(img_h) / hg],
-                         dtype=torch.float32, device=dev)
+    ratio = grid_ratio(img_size, hg, wg, dev)
     fmap = feature_map.float().reshape(n, hg, wg, 3, 5 + num_classes)
     box_xy = fmap[..., 0:2]
     box_wh = fmap[..., 2:4]
@@ -46,8 +69,8 @@ def decode_feature_map(feature_map: torch.Tensor, anchors: np.ndarray,
     centers = (torch.sigmoid(box_xy) + xy_offset) * ratio
     # min(t, 60): exp overflows to inf above 88.7; e^60 px is already beyond
     # any box (the JAX package clamps for its backward pass; kept for parity)
-    sizes = torch.exp(torch.clamp(box_wh, max=60.0)) * torch.as_tensor(
-        np.asarray(anchors, np.float32), device=dev)
+    sizes = torch.exp(torch.clamp(box_wh, max=60.0)) * device_anchors(
+        anchors, dev)
     boxes = torch.cat([centers, sizes], dim=-1)
     return xy_offset, boxes, conf_logits, prob_logits
 

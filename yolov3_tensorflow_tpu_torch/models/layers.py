@@ -1,6 +1,7 @@
-"""Conv / activation / upsample building blocks of the folded inference net.
+"""Conv / batch-norm / activation / upsample building blocks.
 
-Counterpart of `yolov3_tensorflow_tpu/models/layers.py`, inference subset.
+Counterpart of `yolov3_tensorflow_tpu/models/layers.py`: the folded
+inference layers and the live batch-norm layers of the training forward.
 Tensors here are logical NCHW, held in channels_last memory (the layout
 cuDNN runs fastest); conv weights are OIHW. The public forwards in
 `models.yolov3` and `ops.fast_postprocess` convert from and to the JAX
@@ -8,14 +9,15 @@ package's NHWC at their boundary, which costs no copy because a contiguous
 NHWC tensor permuted to NCHW already is channels_last.
 
 Rounding follows the JAX package: each conv emits `compute_dtype`, and the
-bias add and LeakyReLU run in that dtype (bf16 on the GPU), with the
-LeakyReLU slope rounded to that dtype as JAX rounds it.
+bias add, the batch-norm scale and shift and the LeakyReLU run in that
+dtype (bf16 on the GPU), with the LeakyReLU slope rounded to that dtype as
+JAX rounds it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -99,3 +101,90 @@ def neck_split_folded(inter: torch.Tensor, route: torch.Tensor, p_lat: Params,
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of an NCHW tensor; keeps channels_last."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+# ---------------------------------------------------------------------------
+# Live batch norm (the training forward)
+# ---------------------------------------------------------------------------
+
+def leaky_relu_train(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
+    """LeakyReLU(0.1) with JAX's gradient: `where(x >= 0, x, slope * x)`.
+
+    The forward equals `leaky_relu`'s bit for bit. The gradient at x == 0
+    is 1, as JAX's `where` gives it; `F.leaky_relu`'s is the slope there,
+    and a bf16 `y * a + b` lands on exactly 0 often enough over a training
+    step's activations to matter. The slope is rounded to x's dtype."""
+    return torch.where(x >= 0, x, x * _slope(alpha, x.dtype))
+
+
+def batch_norm(y: torch.Tensor, p: Params, s: Params, *, train: bool,
+               momentum: float = 0.99, eps: float = 1e-5
+               ) -> Tuple[torch.Tensor, Params]:
+    """Batch normalization of an NCHW tensor, as the JAX package computes it.
+
+    In training the moments are taken in fp32 over the conv's output as
+    `mean` and `mean_sq`, `var = max(mean_sq - mean^2, 0)` (biased), and
+    the moving statistics move as `momentum * old + (1 - momentum) * new`
+    (`momentum` is JAX's decay, 0.99; PyTorch's BatchNorm would take 0.01,
+    update with the unbiased variance and take the moments another way).
+    Out of training the moving statistics normalize. Either way the output
+    is `y * a + b` in y's dtype, with `a = gamma / sqrt(var + eps)` and
+    `b = beta - mean * a` folded in fp32.
+
+    Returns (normalized activations, new moving statistics); the new
+    statistics carry no gradient."""
+    if train:
+        yf = y.float()
+        mean = yf.mean(dim=(0, 2, 3))
+        mean_sq = yf.square().mean(dim=(0, 2, 3))
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
+        new_s = {"mean": momentum * s["mean"] + (1.0 - momentum) * mean.detach(),
+                 "var": momentum * s["var"] + (1.0 - momentum) * var.detach()}
+    else:
+        mean, var = s["mean"], s["var"]
+        new_s = s
+    inv = torch.rsqrt(var + eps) * p["gamma"]
+    a = inv.to(y.dtype)
+    b = (p["beta"] - mean * inv).to(y.dtype)
+    return y * _channel(a) + _channel(b), new_s
+
+
+def conv_bn_leaky(x: torch.Tensor, p: Params, s: Params, *, stride: int = 1,
+                  train: bool = False, momentum: float = 0.99,
+                  eps: float = 1e-5,
+                  compute_dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[torch.Tensor, Params]:
+    """The darknet conv: conv (no bias) -> live BN -> LeakyReLU(0.1), in
+    `compute_dtype`. Returns (activations, new BN statistics)."""
+    y = conv2d(x, p["w"], stride=stride, compute_dtype=compute_dtype)
+    y, new_s = batch_norm(y, p, s, train=train, momentum=momentum, eps=eps)
+    return leaky_relu_train(y).to(compute_dtype), new_s
+
+
+def neck_split_bn_leaky(inter: torch.Tensor, route: torch.Tensor,
+                        p_lat: Params, s_lat: Params, p_first: Params,
+                        s_first: Params, *, train: bool,
+                        momentum: float = 0.99, eps: float = 1e-5,
+                        compute_dtype: torch.dtype = torch.bfloat16
+                        ) -> Tuple[torch.Tensor, Params, Params]:
+    """The FPN junction of `neck_split_folded` with live batch norm.
+
+    conv_first's kernel is split over the concat's two channel halves and
+    the lateral half is convolved before the nearest-neighbour upsample, so
+    the pre-BN tensor is the literal junction's (up to the order of the
+    sums) while the upsampled tensor and the concat never exist, in the
+    forward or the backward. The two halves are added in `compute_dtype`,
+    as the JAX layer adds them (the serving junction adds in fp32).
+
+    Returns (activations, new lateral stats, new conv_first stats)."""
+    lat, new_s_lat = conv_bn_leaky(inter, p_lat, s_lat, train=train,
+                                   momentum=momentum, eps=eps,
+                                   compute_dtype=compute_dtype)
+    ca = lat.shape[1]
+    w = p_first["w"].to(compute_dtype)
+    ya = conv2d(lat, w[:, :ca], compute_dtype=compute_dtype)
+    yb = conv2d(route, w[:, ca:], compute_dtype=compute_dtype)
+    y = upsample_nearest_2x(ya) + yb
+    y, new_s_first = batch_norm(y, p_first, s_first, train=train,
+                                momentum=momentum, eps=eps)
+    return leaky_relu_train(y).to(compute_dtype), new_s_lat, new_s_first

@@ -1,4 +1,5 @@
-"""YOLOv3: Darknet-53 backbone + FPN neck + 3 detection heads, inference.
+"""YOLOv3: Darknet-53 backbone + FPN neck + 3 detection heads: the folded
+inference forward and the live-BN training and eval forward.
 
 Counterpart of `yolov3_tensorflow_tpu/models/yolov3.py`. The layer plan is
 copied verbatim (a test holds it equal to the JAX plan), so parameter names
@@ -21,8 +22,11 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from yolov3_tensorflow_tpu_torch.models.layers import (conv_bias,
+                                                       conv_bn_leaky,
                                                        conv_folded,
-                                                       neck_split_folded)
+                                                       neck_split_bn_leaky,
+                                                       neck_split_folded,
+                                                       upsample_nearest_2x)
 
 Params = Dict[str, dict]
 
@@ -215,10 +219,10 @@ def _backbone_forward(conv_fn, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def _head_forward(conv_fn, out_fn, routes: Sequence[torch.Tensor], neck_fn
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """FPN neck + 3 heads. `conv_fn(idx, x)` is a folded BN conv, `out_fn(idx,
-    x)` a detection conv, and `neck_fn(lat_idx, first_idx, inter, route)`
-    returns the output of head conv `first_idx` at each junction (see
-    layers.neck_split_folded)."""
+    """FPN neck + 3 heads. `conv_fn(idx, x)` is a BN conv (folded or live),
+    `out_fn(idx, x)` a detection conv, and `neck_fn(lat_idx, first_idx,
+    inter, route)` returns the output of head conv `first_idx` at each
+    junction (see layers.neck_split_folded and neck_split_bn_leaky)."""
     route_1, route_2, route_3 = routes
 
     x = route_3
@@ -241,6 +245,57 @@ def _head_forward(conv_fn, out_fn, routes: Sequence[torch.Tensor], neck_fn
     x = conv_fn(21, x)
     fmap_3 = out_fn(22, x)                      # stride 8
     return fmap_1, fmap_2, fmap_3
+
+
+def yolov3_forward(variables: Dict[str, Params], images: torch.Tensor, *,
+                   train: bool = False,
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   bn_momentum: float = 0.99, bn_eps: float = 1e-5,
+                   split_neck: bool = True
+                   ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, Params]]:
+    """The forward with live batch norm: the training forward (train=True:
+    batch moments, moving statistics updated) and the eval forward
+    (train=False: moving statistics).
+
+    images: [N, H, W, 3] float in [0, 1] (NHWC), H and W divisible by 32.
+    Returns ((fmap_1, fmap_2, fmap_3), new_batch_stats): fmap_i is
+    [N, H/s, W/s, 3*(5+C)] fp32, s in (32, 16, 8), an NHWC view of a
+    channels_last tensor; the new statistics mirror variables["batch_stats"]
+    and carry no gradient. split_neck=True (the default) takes each FPN
+    junction in the split form (`layers.neck_split_bn_leaky`); False the
+    literal upsample + concat + conv.
+    """
+    params, stats = variables["params"], variables["batch_stats"]
+    new_stats: Params = {"backbone": {}, "head": {}}
+    bn = dict(train=train, momentum=bn_momentum, eps=bn_eps,
+              compute_dtype=compute_dtype)
+
+    def bn_conv(scope: str, idx: int, x: torch.Tensor, stride: int = 1):
+        name = f"conv_{idx}"
+        y, new_stats[scope][name] = conv_bn_leaky(
+            x, params[scope][name], stats[scope][name], stride=stride, **bn)
+        return y
+
+    def neck_fn(lat_idx, first_idx, inter, route):
+        lat, first = f"conv_{lat_idx}", f"conv_{first_idx}"
+        if not split_neck:
+            x = upsample_nearest_2x(bn_conv("head", lat_idx, inter))
+            x = torch.cat([x, route.to(x.dtype)], dim=1)
+            return bn_conv("head", first_idx, x)
+        head, head_stats = params["head"], stats["head"]
+        out, new_stats["head"][lat], new_stats["head"][first] = \
+            neck_split_bn_leaky(inter, route, head[lat], head_stats[lat],
+                                head[first], head_stats[first], **bn)
+        return out
+
+    x = images.permute(0, 3, 1, 2).to(compute_dtype)   # NCHW, channels_last
+    routes = _backbone_forward(lambda i, x, s: bn_conv("backbone", i, x, s), x)
+    fmaps = _head_forward(
+        lambda i, x: bn_conv("head", i, x),
+        lambda i, x: conv_bias(x, params["head"][f"conv_{i}"],
+                               compute_dtype=compute_dtype),
+        routes, neck_fn)
+    return tuple(f.permute(0, 2, 3, 1) for f in fmaps), new_stats
 
 
 def fold_batch_norm(variables: Dict[str, Params],

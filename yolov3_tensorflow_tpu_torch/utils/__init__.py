@@ -1,1 +1,2 @@
-"""Support code: building the CUDA kernels."""
+"""Support code: building the CUDA kernels, profiling, the summary writer,
+class names and drawing."""
