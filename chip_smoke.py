@@ -125,7 +125,26 @@ Phases, in order; any failure exits non-zero before the last line:
    (device-resident batches; ms per step with host gaps, device busy time,
    idle share, peak memory, share of 3x the forward's roofline bound), the
    host loader alone in images/s, cli.train's StepTimer p50.
-13. prints the kernel record and the device record as JSON; the last line
+13. the device data path, the overfit gate and the checkpoint CLIs, on
+   phase 12's synthetic set (labels 0..2, COCO-80 head). One device-mode
+   loader batch with the reference recipe (mixup, color distortion,
+   multi-scale, 608^2 tiles, the largest bucket): encode_labels_device on
+   the GPU bit-equal to the host encode_labels on the same padded ground
+   truth, augment_batch on the GPU within 1/255 of the CPU's everywhere
+   and equal on at least 99.5% of the values. The bf16 train step in
+   device mode (augmentation and label grids in the step) at batch 8 and
+   32 beside phase 12's host-mode step, then both in 8 turns (h d d h h d
+   d h) on the same inputs as before, the prologue alone, the loader
+   alone in both modes and the bytes each copies per batch. The reduced
+   overfit gate (scripts/overfit_gate.py: adam, 416^2, batch 8, 16 images,
+   GATE_EPOCHS epochs, device_augment and device_encode, its own 3-class
+   head) graded by cli.evaluate.run_eval: rc 0, mAP >= 0.95, the per-group
+   kernel once per evaluate batch. cli.convert_weights of a .weights file
+   of phase 4's tree: the checkpoint's tensors equal the file's and
+   cli.detect_image draws the same boxes from both; cli.strip_checkpoint
+   of the gate's best checkpoint drops its optimizer state and
+   cli.evaluate of it gives the gate's mAP.
+14. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -135,6 +154,7 @@ Phases, in order; any failure exits non-zero before the last line:
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -183,6 +203,10 @@ LETTERBOX_ATOL = 0.01 / 255            # device_letterbox, GPU vs CPU
 LEARN_STEPS = 30                       # bf16 Adam steps; the loss must halve
 TRAIN_IMAGES = 64                      # cli.train's training set (8 batches)
 TRAIN_BATCHES = (8, 32)                # train step batches timed
+STAGED = 608                           # device-mode tiles: the largest bucket
+PIXEL_EQUAL = 0.995                    # augment_batch GPU == CPU, share
+GATE_IMAGES = 16                       # the reduced overfit gate's images
+GATE_EPOCHS = 450                      # and epochs (PERF.md says why)
 
 
 def fail(msg: str) -> None:
@@ -498,8 +522,8 @@ def roofline_phase(dev: torch.device, card: str, variables: dict,
 def run_cli(main_fn, argv, module) -> tuple:
     """One CLI run with the kernels' counts set to 0 just before it and
     read just after, its standard output captured and the boxes it draws
-    counted (`module.plot_one_box` wrapped for the run). Returns (rc,
-    stdout, boxes drawn, shared-candidate launches, per-group launches,
+    recorded (`module.plot_one_box` wrapped for the run). Returns (rc,
+    stdout, the boxes drawn, shared-candidate launches, per-group launches,
     wall seconds)."""
     import contextlib
     import io
@@ -524,7 +548,7 @@ def run_cli(main_fn, argv, module) -> tuple:
         wall = time.perf_counter() - t0
     finally:
         module.plot_one_box = plot
-    return (rc, out.getvalue(), len(drawn),
+    return (rc, out.getvalue(), drawn,
             nms_cuda.nms_keep_mask_shared.launches,
             nms_cuda.nms_keep_mask.launches, wall)
 
@@ -595,8 +619,9 @@ def cli_phase(dev: torch.device, card: str, variables: dict,
             argv = [str(image), *common, "--output", str(out)]
             if mode != "prefilter":          # prefilter is the default
                 argv += ["--mode", mode]
-            rc, _, drawn, k1, k2, wall = run_cli(detect_image.main, argv,
+            rc, _, boxes, k1, k2, wall = run_cli(detect_image.main, argv,
                                                  detect_image)
+            drawn = len(boxes)
             print(f"detect_image --mode {mode} ({SIZE}^2, bf16): rc {rc}, "
                   f"{drawn} boxes drawn, nms_shared launches {k1}, nms "
                   f"launches {k2}, {wall:.2f} s wall (weights load and "
@@ -624,8 +649,9 @@ def cli_phase(dev: torch.device, card: str, variables: dict,
             out = tmp / f"out{i}.mp4"
             argv = [str(video), *common, "--save_video", "true", "--output",
                     str(out), *extra]
-            rc, text, drawn, k1, k2, wall = run_cli(detect_video.main, argv,
+            rc, text, boxes, k1, k2, wall = run_cli(detect_video.main, argv,
                                                     detect_video)
+            drawn = len(boxes)
             fps = [line for line in text.splitlines() if "FPS" in line]
             print(f"detect_video {name}: rc {rc}, {fps[-1] if fps else '?'}; "
                   f"{drawn} boxes drawn, nms_shared launches {k1} "
@@ -738,14 +764,15 @@ def train_config(compute_dtype: str, optimizer: str, **train):
     return cfg.finalize(count_files=False)
 
 
-def train_step_fn(cfg):
-    """(make_train_step(cfg, optimizer), optimizer) for a Config."""
+def train_step_fn(cfg, **modes):
+    """(make_train_step(cfg, optimizer, **modes), optimizer) for a Config;
+    `modes` are make_train_step's device data path arguments."""
     from yolov3_tensorflow_tpu_torch.train.optimizers import build_optimizer
     from yolov3_tensorflow_tpu_torch.train.schedules import build_schedule
     from yolov3_tensorflow_tpu_torch.train.trainer import make_train_step
     sched = build_schedule(cfg)
     opt = build_optimizer(cfg.train.optimizer, sched)
-    return make_train_step(cfg, opt, schedule=sched), opt
+    return make_train_step(cfg, opt, schedule=sched, **modes), opt
 
 
 def fresh_state(opt, dev: torch.device) -> dict:
@@ -961,17 +988,55 @@ def cli_train_runs(dev: torch.device, card: str, tmp: Path) -> float:
     return p50
 
 
+def step_timing(dev: torch.device, card: str, fn, b: int,
+                what: str) -> tuple:
+    """A bf16 train step at batch b, 416^2: 3 warm-up calls, then ms per
+    step with host gaps (call_ms), device busy time, idle share, peak
+    memory and the share of 3x the forward's roofline bound, printed.
+    Returns (ms, busy ms, peak GiB)."""
+    from yolov3_tensorflow_tpu_torch.scripts import roofline
+    from yolov3_tensorflow_tpu_torch.utils.profiling import device_busy_ms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(3):
+        fn()
+    ms = call_ms(fn, 10)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    busy = device_busy_ms(fn, 3)
+    bound = 3 * roofline.roofline(
+        b, (SIZE, SIZE), roofline.H100_PEAKS["bf16"] / 1e12,
+        roofline.H100_PEAKS["hbm"] / 1e9)["t_bound"]
+    print(f"train step batch {b} at {SIZE}^2 (bf16, momentum, no freeze, "
+          f"{what}): {ms:.3f} ms/step (host gaps included), "
+          f"{b * 1000.0 / ms:.1f} img/s; device busy {busy:.3f} ms/step, "
+          f"idle share {max(0.0, 1 - busy / ms):.3f}; peak memory "
+          f"{peak:.2f} GiB; bound {bound * 1e3:.3f} ms (3x the forward's "
+          f"roofline bound, published peaks): {bound * 1e3 / ms * 100:.1f}% "
+          f"of it [{card}]")
+    return ms, busy, peak
+
+
+def loader_rate(loader) -> float:
+    """Images per second of a loader alone over its second epoch (the
+    first warms up)."""
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        n = sum(len(b.image_ids) for b in loader.epoch(epoch))
+        wall = time.perf_counter() - t0
+    return n / wall
+
+
 def train_phase(dev: torch.device, card: str, anchors: np.ndarray,
-                max_err: dict) -> None:
-    """Phase 12: training (see the module docstring)."""
+                max_err: dict) -> dict:
+    """Phase 12: training (see the module docstring). Returns the train
+    step's timings by batch, as `step_timing` gives them, each followed by
+    the timed call (phase 13 times it again in turns with its own)."""
     from yolov3_tensorflow_tpu_torch.data.loader import DataLoader
     from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
     from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
     from yolov3_tensorflow_tpu_torch.models.yolov3 import yolov3_forward
     from yolov3_tensorflow_tpu_torch.ops import nms_cuda
     from yolov3_tensorflow_tpu_torch.ops.nms import select_per_class
-    from yolov3_tensorflow_tpu_torch.scripts import roofline
-    from yolov3_tensorflow_tpu_torch.utils.profiling import device_busy_ms
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1022,6 +1087,7 @@ def train_phase(dev: torch.device, card: str, anchors: np.ndarray,
         # ---- part 5: timings
         step, opt = train_step_fn(train_config("bfloat16", "momentum"))
         fresh = fresh_state(opt, dev)
+        host_steps = {}
         for b in TRAIN_BATCHES:
             reps = b // batch.images.shape[0]
             images = torch.from_numpy(np.tile(batch.images, (reps, 1, 1, 1))
@@ -1029,35 +1095,311 @@ def train_phase(dev: torch.device, card: str, anchors: np.ndarray,
             y_true = tuple(torch.from_numpy(np.tile(
                 y, (reps,) + (1,) * (y.ndim - 1))).to(dev)
                 for y in batch.y_true)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            for _ in range(3):
-                step(fresh, images, y_true)
-            ms = call_ms(lambda: step(fresh, images, y_true), 10)
-            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-            busy = device_busy_ms(lambda: step(fresh, images, y_true), 3)
-            bound = 3 * roofline.roofline(
-                b, (SIZE, SIZE), roofline.H100_PEAKS["bf16"] / 1e12,
-                roofline.H100_PEAKS["hbm"] / 1e9)["t_bound"]
-            print(f"train step batch {b} at {SIZE}^2 (bf16, momentum, no "
-                  f"freeze, device-resident batch): {ms:.3f} ms/step "
-                  f"(host gaps included), {b * 1000.0 / ms:.1f} img/s; "
-                  f"device busy {busy:.3f} ms/step, idle share "
-                  f"{max(0.0, 1 - busy / ms):.3f}; peak memory {peak:.2f} "
-                  f"GiB; bound {bound * 1e3:.3f} ms (3x the forward's "
-                  f"roofline bound, published peaks): "
-                  f"{bound * 1e3 / ms * 100:.1f}% of it [{card}]")
+            fn = functools.partial(step, fresh, images, y_true)
+            host_steps[b] = step_timing(dev, card, fn, b,
+                                        "device-resident batch") + (fn,)
         loader = DataLoader(train["annotation_file"], C, anchors, 8,
                             (SIZE, SIZE), mode="train", use_mix_up=True,
                             use_color_distort=True, seed=0)
-        for epoch in range(2):                      # the first warms up
-            t0 = time.perf_counter()
-            n = sum(b.images.shape[0] for b in loader.epoch(epoch))
-            wall = time.perf_counter() - t0
+        rate = loader_rate(loader)
         print(f"host loader alone ({loader.num_threads} threads, {SIZE}^2, "
-              f"mixup and color distortion on, batch 8): {n} images in "
-              f"{wall:.2f} s, {n / wall:.1f} images/s; cli.train StepTimer "
-              f"p50 {p50:.1f} ms/step [{card}]")
+              f"mixup and color distortion on, batch 8): {rate:.1f} "
+              f"images/s; cli.train StepTimer p50 {p50:.1f} ms/step [{card}]")
+    return host_steps
+
+
+def data_path_check(dev: torch.device, card: str, ann: str,
+                    anchors: np.ndarray) -> None:
+    """Device data path, part 1: one device-mode loader batch with the
+    reference recipe (mixup, colour distortion, multi-scale, tiles of the
+    largest bucket). The label grids from encode_labels_device on the GPU
+    must equal the host encode_labels on the same padded ground truth bit
+    for bit; augment_batch on the GPU must agree with the same function on
+    the CPU within 1/255 everywhere and exactly on PIXEL_EQUAL of the
+    pixels."""
+    from yolov3_tensorflow_tpu_torch.data.device_augment import augment_batch
+    from yolov3_tensorflow_tpu_torch.data.device_encode import \
+        encode_labels_device
+    from yolov3_tensorflow_tpu_torch.data.encoder import encode_labels
+    from yolov3_tensorflow_tpu_torch.data.loader import DataLoader
+    loader = DataLoader(ann, C, anchors, 8, (SIZE, SIZE), mode="train",
+                        multi_scale=True, use_mix_up=True,
+                        use_color_distort=True, num_threads=8, seed=0,
+                        device_augment=True, staged_size=STAGED,
+                        device_encode=True)
+    batch = next(iter(loader.epoch(0)))
+    size, n = tuple(batch.img_size), len(batch.image_ids)
+    gt = [torch.from_numpy(a).to(dev)
+          for a in (batch.gt_boxes, batch.gt_labels, batch.gt_mask)]
+    grids = encode_labels_device(*gt, size, C, anchors)
+    host = [encode_labels(batch.gt_boxes[i][batch.gt_mask[i]],
+                          batch.gt_labels[i][batch.gt_mask[i]], size, C,
+                          anchors) for i in range(n)]
+    for s, grid in enumerate(grids):
+        want = np.stack([h[s] for h in host])
+        check(np.array_equal(grid.cpu().numpy(), want),
+              f"encode_labels_device: grid {s} differs from the host's")
+    occupied = sum(int((g[..., 4] > 0).sum()) for g in grids)
+    print(f"device data path, one loader batch of {n} at {size[0]}x{size[1]} "
+          f"(multi-scale), tiles {STAGED}^2, {int(batch.gt_mask.sum())} boxes "
+          f"({occupied} occupied slots), "
+          f"{int((batch.params['lam'] < 1).sum())} mixup pairs, "
+          f"interpolation codes "
+          f"{batch.params['interp'].tolist()}: GPU grids == host grids")
+
+    def pixels(device):
+        return augment_batch(
+            torch.from_numpy(batch.staged).to(device),
+            torch.from_numpy(batch.staged2).to(device),
+            {k: torch.from_numpy(v).to(device)
+             for k, v in batch.params.items()}, size, mixup=True,
+            distort=True)
+    got = torch.round(pixels(dev).cpu() * 255.0)
+    want = torch.round(pixels(torch.device("cpu")) * 255.0)
+    diff = (got - want).abs()
+    share = float((diff == 0).double().mean())
+    print(f"augment_batch GPU against CPU: max |diff| {float(diff.max()):.0f}"
+          f" of 255, equal on {share * 100:.4f}% of {diff.numel()} values "
+          f"(limits 1 and {PIXEL_EQUAL * 100:.1f}%) [{card}]")
+    check(float(diff.max()) <= 1.0, "augment_batch: GPU and CPU differ by "
+                                    "more than 1/255")
+    check(share >= PIXEL_EQUAL, f"augment_batch: GPU equals CPU on only "
+                                f"{share * 100:.3f}% of the values")
+
+
+def copy_bytes(batch) -> int:
+    """Bytes the trainer copies to the device for one loader batch: the
+    arrays `Trainer._train_args` copies (`trainer.copied_arrays`)."""
+    from yolov3_tensorflow_tpu_torch.train.trainer import copied_arrays
+    return sum(a.nbytes for a in copied_arrays(batch).values())
+
+
+def device_timings(dev: torch.device, card: str, ann: str,
+                   anchors: np.ndarray, host_steps: dict) -> None:
+    """Device data path, part 2: the bf16 train step in device mode at
+    batch 8 and 32 beside phase 12's host-mode step, the prologue
+    (augmentation and label grids) alone, the loader alone in both modes
+    with the same threads and recipe (416^2, mixup and colour distortion,
+    no multi-scale) and the bytes each mode copies per batch."""
+    from yolov3_tensorflow_tpu_torch.data.device_augment import augment_batch
+    from yolov3_tensorflow_tpu_torch.data.device_encode import \
+        encode_labels_device
+    from yolov3_tensorflow_tpu_torch.data.loader import DataLoader
+    from yolov3_tensorflow_tpu_torch.utils.profiling import device_busy_ms
+
+    def loader(device_mode: bool) -> DataLoader:
+        return DataLoader(ann, C, anchors, 8, (SIZE, SIZE), mode="train",
+                          multi_scale=False, use_mix_up=True,
+                          use_color_distort=True, seed=0,
+                          device_augment=device_mode, staged_size=STAGED,
+                          device_encode=device_mode)
+
+    dev_loader, host_loader = loader(True), loader(False)
+    batch = next(iter(dev_loader.epoch(0)))
+    host_batch = next(iter(host_loader.epoch(0)))
+    step, opt = train_step_fn(train_config("bfloat16", "momentum"),
+                              device_augment=True, device_encode=True)
+    fresh = fresh_state(opt, dev)
+    out_size = (SIZE, SIZE)
+    for b in TRAIN_BATCHES:
+        reps = b // len(batch.image_ids)
+
+        def tiled(a):
+            return torch.from_numpy(np.tile(a, (reps,) + (1,) * (a.ndim - 1))
+                                    ).to(dev)
+        staged = tiled(batch.staged)
+        images = (staged, tiled(batch.staged2),
+                  {k: tiled(v) for k, v in batch.params.items()})
+        gt = (tiled(batch.gt_boxes), tiled(batch.gt_labels),
+              tiled(batch.gt_mask))
+        fn = functools.partial(step, fresh, images, gt, out_size=out_size)
+        ms, busy, _ = step_timing(
+            dev, card, fn, b, f"device data path: {STAGED}^2 uint8 tiles "
+                              f"and padded ground truth on the device")
+        h_ms, h_busy, _, h_fn = host_steps[b]
+        print(f"  beside phase 12's host-mode step at batch {b}: {h_ms:.3f} "
+              f"ms/step, busy {h_busy:.3f} ms; device mode +{ms - h_ms:.3f} "
+              f"ms wall, +{busy - h_busy:.3f} ms busy [{card}]")
+        # the host's wall time swings by tens of ms between calls (its cores
+        # are shared): 4 turns of each mode, in the order h d d h h d d h
+        turns = {"host": [], "device": []}
+        for mode in ("host", "device", "device", "host") * 2:
+            turns[mode].append(call_ms(h_fn if mode == "host" else fn, 10))
+        med = {k: float(np.median(v)) for k, v in turns.items()}
+        low = {k: min(v) for k, v in turns.items()}
+        print(f"  in turns at batch {b} (h d d h h d d h, 10 steps each): "
+              f"host mode {', '.join(f'{t:.3f}' for t in turns['host'])}, "
+              f"device mode {', '.join(f'{t:.3f}' for t in turns['device'])}"
+              f" ms/step; device mode {med['device'] - med['host']:+.3f} ms "
+              f"by the medians, {low['device'] - low['host']:+.3f} ms by the "
+              f"fastest turns [{card}]")
+
+        def prologue():
+            augment_batch(*images, out_size, mixup=True, distort=True)
+            encode_labels_device(*gt, out_size, C, anchors)
+        for _ in range(3):
+            prologue()
+        p_ms = call_ms(prologue, 10)
+        p_busy = device_busy_ms(prologue, 3)
+        print(f"  prologue alone at batch {b} (augment_batch + "
+              f"encode_labels_device): {p_ms:.3f} ms (host gaps included), "
+              f"device busy {p_busy:.3f} ms [{card}]")
+    d_rate, h_rate = loader_rate(dev_loader), loader_rate(host_loader)
+    print(f"loader alone ({dev_loader.num_threads} threads, {SIZE}^2, mixup "
+          f"and color distortion on, batch 8): device mode {d_rate:.1f} "
+          f"images/s, host mode {h_rate:.1f} images/s; copied per batch: "
+          f"device mode {copy_bytes(batch) / 1e6:.3f} MB, host mode "
+          f"{copy_bytes(host_batch) / 1e6:.3f} MB [{card}]")
+
+
+def convert_check(dev: torch.device, variables: dict, tmp: Path) -> None:
+    """Device data path, part 4a: cli.convert_weights of a .weights file of
+    phase 4's tree into a checkpoint directory, whose tensors must equal the
+    file's; cli.detect_image must draw the same boxes from both."""
+    import contextlib
+    import io
+
+    import cv2
+
+    from yolov3_tensorflow_tpu_torch.cli import convert_weights, detect_image
+    from yolov3_tensorflow_tpu_torch.cli.common import load_variables
+    from yolov3_tensorflow_tpu_torch.train.optimizers import flatten
+    from yolov3_tensorflow_tpu_torch.utils.weights import save_darknet_weights
+
+    weights = tmp / "spread_coco80.weights"
+    save_darknet_weights(variables, str(weights), C)
+    converted = tmp / "converted"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = convert_weights.main(["--weights", str(weights), "--output",
+                                   str(converted), "--num_classes", str(C),
+                                   "--device", str(dev)])
+    check(rc == 0, f"convert_weights returned {rc}")
+    a = flatten(load_variables(str(weights), C, dev))
+    b = flatten(load_variables(str(converted), C, dev))
+    check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+          "convert_weights: the checkpoint's tensors differ from the "
+          ".weights file's")
+    image = tmp / "frame.jpg"
+    rng = np.random.default_rng(11)
+    check(cv2.imwrite(str(image), rng.integers(
+        0, 256, CLI_SRC_HW + (3,), dtype=np.uint8)), "cv2 cannot write a jpg")
+    drawn = []
+    for source in (weights, converted):
+        rc, _, boxes, k1, k2, _ = run_cli(
+            detect_image.main, [str(image), "--restore_path", str(source),
+                                "--device", str(dev), "--new_size",
+                                str(SIZE), str(SIZE), "--output",
+                                str(tmp / "out.jpg")], detect_image)
+        check(rc == 0 and (k1, k2) == (1, 0),
+              f"detect_image from {source.name}: rc {rc}, launches {(k1, k2)}")
+        drawn.append([tuple(map(float, c)) for c in boxes])
+    check(drawn[0] and drawn[0] == drawn[1],
+          f"detect_image: {len(drawn[0])} boxes from the .weights file, "
+          f"{len(drawn[1])} from its checkpoint, or not the same")
+    print(f"convert_weights -> {len(a)} tensors equal; detect_image "
+          f"--restore_path <.weights> and <checkpoint>: the same "
+          f"{len(drawn[0])} boxes")
+
+
+def gate_check(dev: torch.device, card: str, tmp: Path) -> None:
+    """Device data path, parts 3 and 4b: the reduced overfit gate in device
+    mode, graded by cli.evaluate.run_eval with the per-group kernel once per
+    evaluate batch; then cli.strip_checkpoint of the gate's best checkpoint
+    (written at its last epoch, with the optimizer state) and cli.evaluate
+    of the stripped one, which must give the gate's mAP. The mAP limit is
+    checked last, so that a gate short of it still tests the CLIs."""
+    import contextlib
+    import io
+    import math
+
+    from yolov3_tensorflow_tpu_torch.cli import evaluate, strip_checkpoint
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.scripts import overfit_gate
+    from yolov3_tensorflow_tpu_torch.train.checkpoint import CheckpointStore
+
+    run_eval, evals = evaluate.run_eval, []
+
+    def counted_eval(args):
+        torch.cuda.synchronize()
+        nms_cuda.nms_keep_mask.launches = 0
+        nms_cuda.nms_keep_mask_shared.launches = 0
+        result = run_eval(args)
+        torch.cuda.synchronize()
+        evals.append((result, nms_cuda.nms_keep_mask.launches,
+                      nms_cuda.nms_keep_mask_shared.launches))
+        return result
+
+    # validation at the last epoch only: the trainer then also writes a
+    # best checkpoint of the final state, with the optimizer state
+    gate_dir = tmp / "gate"
+    argv = ["--num_images", str(GATE_IMAGES), "--epochs", str(GATE_EPOCHS),
+            "--img_size", str(SIZE), "--val_every", str(GATE_EPOCHS - 1),
+            "--device_augment", "true", "--device_encode", "true",
+            "--device", str(dev), "--out_dir", str(gate_dir)]
+    out = io.StringIO()
+    evaluate.run_eval = counted_eval
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = overfit_gate.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        evaluate.run_eval = run_eval
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    batches = math.ceil(GATE_IMAGES / 8)       # eval.batch_size 8
+    result, k2, k1 = evals[0]
+    print(f"overfit gate (adam, {summary['img_size']}^2, batch 8, "
+          f"{GATE_IMAGES} images, {GATE_EPOCHS} epochs, {summary['steps']} "
+          f"steps, device_augment and device_encode): rc {rc}, mAP "
+          f"{result['mAP']:.6f}, recall {summary['recall']}, precision "
+          f"{summary['precision']}, per-class AP {summary['per_class_ap']}, "
+          f"final loss {summary['final_loss']}, train "
+          f"{summary['train_seconds']} s, {wall:.1f} s wall; cli.evaluate "
+          f"nms launches {k2} ({batches} batches), nms_shared {k1} [{card}]")
+    check((k2, k1) == (batches, 0), f"overfit gate: cli.evaluate launched "
+                                    f"(nms, nms_shared) {(k2, k1)}, want "
+                                    f"{(batches, 0)}")
+
+    store = CheckpointStore(str(gate_dir / "ckpt"))
+    best = [n for n in store.list() if n.startswith("best_model_")]
+    check(len(best) == 1, f"overfit gate: best checkpoints {best}")
+    check("opt_state" in store.restore(best[0]),
+          f"{best[0]} holds no optimizer state")
+    stripped = tmp / "stripped"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_strip = strip_checkpoint.main(["--input", store.path(best[0]),
+                                          "--output", str(stripped)])
+    keys = sorted(CheckpointStore(str(tmp)).restore(str(stripped)))
+    check(rc_strip == 0 and "opt_state" not in keys,
+          f"strip_checkpoint: rc {rc_strip}, keys {keys}")
+    data = gate_dir / "data"
+    again = counted_eval(evaluate.build_parser().parse_args([
+        "--eval_file", str(data / "train.txt"), "--restore_path",
+        str(stripped), "--class_name_path", str(data / "synth.names"),
+        "--img_size", str(SIZE), str(SIZE), "--device", str(dev)]))
+    print(f"strip_checkpoint {best[0]}: keys {keys}; cli.evaluate of it: "
+          f"mAP {again['mAP']:.6f} (the gate's {result['mAP']:.6f}), nms "
+          f"launches {evals[-1][1]}")
+    check(again["mAP"] == result["mAP"] and evals[-1][1:] == (batches, 0),
+          "cli.evaluate of the stripped checkpoint differs from the gate's")
+    check(rc == 0 and summary["passed"] and result["mAP"] >= 0.95,
+          f"overfit gate: rc {rc}, mAP {result['mAP']}")
+
+
+def device_data_phase(dev: torch.device, card: str, anchors: np.ndarray,
+                      variables: dict, host_steps: dict) -> None:
+    """Phase 13: the device data path, the reduced overfit gate and the
+    checkpoint CLIs (see the module docstring)."""
+    from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train = generate_dataset(str(tmp / "train"), TRAIN_IMAGES, seed=0,
+                                 img_size=(SIZE, SIZE), prefix="train")
+        data_path_check(dev, card, train["annotation_file"], anchors)
+        device_timings(dev, card, train["annotation_file"], anchors,
+                       host_steps)
+        convert_check(dev, variables, tmp)
+        gate_check(dev, card, tmp)
 
 
 def main() -> int:
@@ -1428,11 +1770,18 @@ def main() -> int:
 
     # ---- 12. training ----------------------------------------------------
     t0 = time.perf_counter()
-    train_phase(dev, card, anchors, max_err)
+    host_steps = train_phase(dev, card, anchors, max_err)
     print(f"training: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 13. records -----------------------------------------------------
+    # ---- 13. the device data path, the gate, the checkpoint CLIs ---------
+    t0 = time.perf_counter()
+    device_data_phase(dev, card, anchors, variables, host_steps)
+    print(f"device data path, overfit gate and checkpoint CLIs: "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
+
+    # ---- 14. records -----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

@@ -176,7 +176,10 @@ def test_detect_video_matches_jax(device_preprocess, frame_batch, weights,
 
 
 def test_checkpoint_directory_raises(weights, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """A directory that is no checkpoint of this package (here an empty
+    one) raises, naming the formats the CLIs read."""
+    with pytest.raises(ValueError, match="neither a darknet .weights file "
+                                         "nor a checkpoint directory"):
         port_image.main([str(ASSETS / "demo_data" / "synth_shapes_1.jpg"),
                          "--restore_path", str(tmp_path), "--device", "cpu",
                          "--class_name_path", NAMES])

@@ -223,10 +223,20 @@ def test_loader_shards_equal(dataset):
 
 @pytest.mark.parametrize("mode", ["device_augment", "device_encode"])
 def test_device_data_path_refused(dataset, mode):
+    """The device-resident modes, refused before they were ported, now
+    give batches of their own kind (tests/test_torch_device_augment.py
+    holds them equal to the JAX loader's)."""
     _, port, _ = dataset
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tload.DataLoader(port["annotation_file"], 3, ANCHORS, 2,
-                         **{mode: True})
+    batch = next(iter(tload.DataLoader(port["annotation_file"], 3, ANCHORS,
+                                       2, (64, 64), num_threads=2,
+                                       **{mode: True}).epoch(0)))
+    if mode == "device_augment":
+        assert batch.images is None and batch.staged.dtype == np.uint8
+        assert batch.staged.shape == (2, 512, 512, 3)
+        assert len(batch.y_true) == 3
+    else:
+        assert batch.y_true is None and batch.images.shape == (2, 64, 64, 3)
+        assert batch.gt_boxes.shape == (2, 64, 5) and batch.gt_mask.any()
 
 
 def test_missing_image_raises(tmp_path):

@@ -34,7 +34,10 @@ def test_every_module_imports_with_jax_blocked():
                  "data.loader", "data.synthetic", "evaluation.metrics",
                  "evaluation.voc", "utils.summary", "train.schedules",
                  "train.optimizers", "train.checkpoint", "train.trainer",
-                 "cli.train"):
+                 "cli.train", "data.device_augment", "data.device_encode",
+                 "cli.evaluate", "cli.convert_weights",
+                 "cli.strip_checkpoint", "cli.kmeans_anchors",
+                 "cli.parse_voc", "utils.kmeans", "scripts.overfit_gate"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "for blocked in ('jax', 'optax', 'orbax'):\n"

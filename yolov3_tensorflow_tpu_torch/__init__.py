@@ -17,7 +17,15 @@ find:
   GPU by default (`--device cpu` trains without one)
 - `data` (annotations, augmentation, label encoding, the threaded loader,
   the synthetic dataset), `evaluation` (batch metrics, VOC mAP),
-  `utils.summary`: host modules copied from the JAX package
+  `utils.summary`, `utils.kmeans`: host modules copied from the JAX
+  package
+- `data.device_augment`, `data.device_encode`: the device-resident data
+  path (augmentation of staged uint8 tiles, label grids from padded ground
+  truth) that the trainer runs before its step
+- `cli.evaluate`, `cli.convert_weights`, `cli.strip_checkpoint`: VOC
+  evaluation of a checkpoint and the checkpoint tools; `cli.kmeans_anchors`,
+  `cli.parse_voc`: host-only dataset tools; `scripts.overfit_gate`: the
+  overfit-to-mAP gate through the Trainer and `cli.evaluate`
 - `models.convert`: JAX variable trees (numpy leaves) -> this package's trees
 - `models.decode`: anchor decode of the raw feature maps
 - `ops.fast_postprocess`, `ops.postprocess`: the packed serving head, the
@@ -27,7 +35,7 @@ find:
   streaming detector (BGR flip, letterbox and detector in one call)
 - `cli.detect_image`, `cli.detect_video`: the image and video demos, on the
   GPU by default (`--device cpu` runs them without one); `cli.common`
-  loads anchors, class names and `.weights` files
+  loads anchors, class names, `.weights` files and checkpoint directories
 - `config`, `utils.coco`, `utils.viz`: host helpers copied from the JAX
   package (the config tree, anchor and names files, class names, drawing)
 - `ops.nms`: the plain per-class NMS and the numpy oracles

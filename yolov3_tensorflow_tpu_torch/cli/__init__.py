@@ -1,3 +1,4 @@
-"""Command-line entry points of the port: the image and video demos and
-training (the JAX package's `cli` without evaluate, convert_weights,
-strip_checkpoint, kmeans_anchors and parse_voc, which are not ported yet)."""
+"""Command-line entry points of the port, those of the JAX package's `cli`:
+the image and video demos, training, evaluation, the checkpoint tools
+(convert_weights, strip_checkpoint) and the host-only dataset tools
+(kmeans_anchors, parse_voc)."""

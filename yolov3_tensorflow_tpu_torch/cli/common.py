@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -39,19 +40,30 @@ def resolve_device(name: str) -> torch.device:
 
 def load_variables(restore_path: str, num_classes: int,
                    device: torch.device) -> Dict[str, Any]:
-    """Model variables on `device` from a darknet .weights file (chosen by
-    its extension). Checkpoint directories raise: the JAX package's orbax
-    checkpoints have no counterpart here yet."""
-    if not restore_path.endswith(".weights"):
-        raise NotImplementedError(
-            f"{restore_path!r} is not a .weights file: checkpoint "
-            f"directories are not ported yet (ROADMAP queue 1, item 8: "
-            f"checkpoints and the trainer)")
-    from yolov3_tensorflow_tpu_torch.models.yolov3 import init_yolov3
-    from yolov3_tensorflow_tpu_torch.utils.weights import load_darknet_weights
-    fresh = init_yolov3(torch.Generator().manual_seed(0), num_classes,
-                        device=device)
-    return load_darknet_weights(fresh, restore_path, num_classes)
+    """Model variables ({"params", "batch_stats"}) on `device`, from a
+    darknet .weights file (chosen by its extension) or from a checkpoint
+    directory written by this package's `train.checkpoint.CheckpointStore`
+    (the trainer's checkpoints, `cli.convert_weights`,
+    `cli.strip_checkpoint`). Anything else raises ValueError naming the two
+    formats: the JAX package's orbax checkpoints are not read here."""
+    from yolov3_tensorflow_tpu_torch.train.checkpoint import (STATE_FILE,
+                                                              CheckpointStore)
+    if restore_path.endswith(".weights"):
+        from yolov3_tensorflow_tpu_torch.models.yolov3 import init_yolov3
+        from yolov3_tensorflow_tpu_torch.utils.weights import \
+            load_darknet_weights
+        fresh = init_yolov3(torch.Generator().manual_seed(0), num_classes,
+                            device=device)
+        return load_darknet_weights(fresh, restore_path, num_classes)
+    path = os.path.abspath(restore_path)
+    if not os.path.isfile(os.path.join(path, STATE_FILE)):
+        raise ValueError(
+            f"{restore_path!r} is neither a darknet .weights file nor a "
+            f"checkpoint directory of this package (a directory holding "
+            f"{STATE_FILE}, written by train.checkpoint.CheckpointStore; "
+            f"orbax checkpoints of the JAX package are not read)")
+    tree = CheckpointStore(os.path.dirname(path)).restore(path, device=device)
+    return {"params": tree["params"], "batch_stats": tree["batch_stats"]}
 
 
 def str2bool(v: str) -> bool:

@@ -41,8 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--letterbox_resize", type=str2bool, default=True)
     p.add_argument("--class_name_path", type=str, default="")
     p.add_argument("--restore_path", type=str, required=True,
-                   help="darknet .weights file (checkpoint directories are "
-                        "not ported yet)")
+                   help="darknet .weights file or a checkpoint directory "
+                        "of this package")
     p.add_argument("--score_thresh", type=float, default=0.3)
     p.add_argument("--nms_thresh", type=float, default=0.45)
     p.add_argument("--max_boxes", type=int, default=200)

@@ -7,9 +7,8 @@ files. Derived values (anchors, class names, image counts, epoch-to-step
 conversions) are computed by `Config.finalize()`, never at import time.
 
 The fields of modes the port does not run yet stay, so that a config file
-of the JAX package loads: `data.device_augment`, `data.device_encode`
-(ROADMAP queue 1, item 9) and `train.num_data_parallel > 1` (item 11) are
-refused by the loader and the trainer.
+of the JAX package loads: `train.num_data_parallel > 1` (ROADMAP queue 1,
+item 11) is refused by the trainer.
 """
 
 from __future__ import annotations
@@ -71,8 +70,11 @@ class DataConfig:
     use_color_distort: bool = True
     # ground-truth boxes per image the loss ignore mask compares against
     max_boxes_per_image: int = 64
-    # the device-resident data path (augmentation and label encoding on
-    # the device): not ported yet, refused (ROADMAP queue 1, item 9)
+    # the device-resident data path: the host decodes and draws, the device
+    # makes the pixels (data/device_augment.py; every image is staged into
+    # a staged_size^2 uint8 tile, so set it to at least the dataset's
+    # largest side) and the label grids from padded ground truth
+    # (data/device_encode.py)
     device_augment: bool = False
     staged_size: int = 512
     device_encode: bool = False

@@ -1,6 +1,7 @@
 """Ground-truth label encoding into dense fixed-shape y_true grids, copied
 from the JAX package's `data/encoder.py` (a test holds the copy equal to its
-original; the padded ground truth of the device-encode mode is not copied).
+original), with the padded ground truth of the device-encode mode
+(`pad_ground_truth`).
 
 Each GT box is assigned to its best-IoU anchor among all 9 (width/height-only IoU centered at
 the origin), which selects both the scale (stride 32/16/8) and the anchor slot
@@ -82,3 +83,23 @@ def encode_labels(boxes: np.ndarray, labels: np.ndarray,
         grid[y, x, k, 5 + c] = 1.0
         grid[y, x, k, -1] = mix_w[i]
     return y_true
+
+
+def pad_ground_truth(boxes: np.ndarray, labels: np.ndarray, max_boxes: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad ragged GT to fixed [max_boxes] arrays + validity mask (the
+    device-encode mode needs static shapes). Extra boxes beyond max_boxes
+    are dropped deterministically (largest-area first retained)."""
+    n = boxes.shape[0]
+    if n > max_boxes:
+        areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        keep = np.argsort(-areas, kind="stable")[:max_boxes]
+        boxes, labels = boxes[keep], labels[keep]
+        n = max_boxes
+    out_boxes = np.zeros((max_boxes, boxes.shape[1]), np.float32)
+    out_labels = np.zeros((max_boxes,), np.int32)
+    mask = np.zeros((max_boxes,), bool)
+    out_boxes[:n] = boxes
+    out_labels[:n] = labels
+    mask[:n] = True
+    return out_boxes, out_labels, mask

@@ -1,6 +1,6 @@
 """Threaded host data loader, copied from the JAX package's `data/loader.py`
-in its host-augment, host-encode mode (tests hold its batches equal to the
-JAX loader's for the same seed):
+(tests hold its batches equal to the JAX loader's for the same seed, in
+every mode):
 
 - per-image work (imread -> augment -> encode) fans out over a thread pool
   (cv2 and numpy release the GIL)
@@ -11,9 +11,13 @@ JAX loader's for the same seed):
 - mixup pairs a line with another random line of its batch with
   probability 0.5
 
-Batches are numpy; the trainer moves them to the device. The device-resident
-data path (`device_augment`, `device_encode`) is not ported yet and raises
-(ROADMAP queue 1, item 9).
+Batches are numpy; the trainer moves them to the device. In the device-
+resident modes the loader sends less and the device does the rest:
+`device_augment` gives staged uint8 tiles and the packed transform
+parameters of `plan_example` instead of float images
+(`data/device_augment.py` makes the pixels), and `device_encode` gives the
+padded post-augmentation ground truth instead of the label grids
+(`data/device_encode.py` makes them).
 """
 
 from __future__ import annotations
@@ -30,22 +34,14 @@ import numpy as np
 from yolov3_tensorflow_tpu_torch.data import augment
 from yolov3_tensorflow_tpu_torch.data.annotations import (parse_line,
                                                           read_annotation_file)
-from yolov3_tensorflow_tpu_torch.data.encoder import encode_labels
+from yolov3_tensorflow_tpu_torch.data.device_augment import (ExamplePlan,
+                                                            pack_plans,
+                                                            stage_image)
+from yolov3_tensorflow_tpu_torch.data.encoder import (encode_labels,
+                                                      pad_ground_truth)
 
 MULTI_SCALE_SIZES: Tuple[Tuple[int, int], ...] = tuple(
     (x * 32, x * 32) for x in range(10, 20))
-
-
-def refuse_device_data_path(device_augment: bool, device_encode: bool
-                            ) -> None:
-    """Raise for the modes of the device-resident data path."""
-    for name, on in (("device_augment", device_augment),
-                     ("device_encode", device_encode)):
-        if on:
-            raise NotImplementedError(
-                f"data.{name}=true: the device-resident data path is not "
-                f"ported yet (ROADMAP queue 1, item 9); the host loader "
-                f"augments and encodes")
 
 
 def multi_scale_size(step: int, interval: int = 10, seed: int = 0,
@@ -67,19 +63,34 @@ def multi_scale_size(step: int, interval: int = 10, seed: int = 0,
 @dataclass
 class Batch:
     image_ids: np.ndarray   # [B] int64
-    images: np.ndarray      # [B, H, W, 3] float32 RGB in [0, 1]
-    y_true: Tuple[np.ndarray, np.ndarray, np.ndarray]  # strides 32/16/8
+    images: np.ndarray      # [B, H, W, 3] float32 RGB in [0, 1]; None in
+                            # device-augment mode (see staged/params)
+    y_true: Tuple[np.ndarray, np.ndarray, np.ndarray]  # strides 32/16/8;
+                            # None in device-encode mode (see gt_*)
+    # device-augment mode: staged uint8 tiles and the packed transform
+    # parameters; device_augment.augment_batch makes the images
+    staged: np.ndarray = None      # [B, S, S, 3] uint8 BGR
+    staged2: np.ndarray = None     # [B, S, S, 3] uint8 BGR (mixup partners;
+                                   # `staged` itself when mixup is off)
+    params: dict = None            # device_augment.pack_plans arrays
     img_size: Tuple[int, int] = None   # (w, h) of this batch
+    # device-encode mode: the padded ground truth that
+    # device_encode.encode_labels_device scatters into the grids
+    gt_boxes: np.ndarray = None    # [B, M, 5] xyxy + mixup weight
+    gt_labels: np.ndarray = None   # [B, M] int32
+    gt_mask: np.ndarray = None     # [B, M] bool
 
 
 def parse_example(line: Union[str, Tuple[str, str]], num_classes: int,
                   img_size: Tuple[int, int], anchors: np.ndarray,
                   mode: str, letterbox: bool, rng: np.random.Generator,
-                  use_color_distort: bool = True):
+                  use_color_distort: bool = True, emit_gt: bool = False):
     """Load + augment + encode one example.
 
     `line` is a single annotation line, or a pair for mixup. img_size is
-    (width, height). Returns (img_idx, image, y_true_list).
+    (width, height). Returns (img_idx, image, y_true_list), or
+    (img_idx, image, (boxes, labels)), the raw post-augmentation ground
+    truth, when emit_gt=True (device-encode mode).
     """
     if isinstance(line, tuple):
         a1, a2 = parse_line(line[0]), parse_line(line[1])
@@ -122,8 +133,104 @@ def parse_example(line: Union[str, Tuple[str, str]], num_classes: int,
             letterbox=letterbox)
 
     img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    if emit_gt:
+        return img_idx, img, (boxes, labels)
     y_true = encode_labels(boxes, labels, img_size, num_classes, anchors)
     return img_idx, img, y_true
+
+
+def plan_example(line: Union[str, Tuple[str, str]], num_classes: int,
+                 img_size: Tuple[int, int], anchors: np.ndarray,
+                 mode: str, letterbox: bool, rng: np.random.Generator,
+                 use_color_distort: bool = True, staged_size: int = 512,
+                 emit_gt: bool = False):
+    """Device-augment twin of `parse_example`: decode + draw + box geometry
+    on the host, pixels deferred to the device (data/device_augment.py).
+
+    Consumes the PRNG stream in exactly `parse_example`'s order (shared
+    sampler functions), so a fixed (seed, epoch, step, slot) key produces
+    the same transform in both modes. Returns
+    (img_idx, ExamplePlan, y_true_list), or (img_idx, ExamplePlan,
+    (boxes, labels)) when emit_gt=True (device-encode mode).
+    """
+    if isinstance(line, tuple):
+        a1, a2 = parse_line(line[0]), parse_line(line[1])
+        img1, img2 = cv2.imread(a1.path), cv2.imread(a2.path)
+        if img1 is None:
+            raise FileNotFoundError(f"cannot read image: {a1.path}")
+        if img2 is None:
+            raise FileNotFoundError(f"cannot read image: {a2.path}")
+        lam = augment.sample_mixup_lam(rng)
+        tile1, boxes1 = stage_image(img1, staged_size, a1.boxes)
+        tile2, boxes2 = stage_image(img2, staged_size, a2.boxes)
+        boxes = augment.mixup_boxes(boxes1, boxes2, lam)
+        labels = np.concatenate([a1.labels, a2.labels])
+        img_idx = a2.index
+        h1, w1 = tile_extent(img1.shape, staged_size)
+        h2, w2 = tile_extent(img2.shape, staged_size)
+        h, w = max(h1, h2), max(w1, w2)
+    else:
+        ann = parse_line(line)
+        img = cv2.imread(ann.path)
+        if img is None:
+            raise FileNotFoundError(f"cannot read image: {ann.path}")
+        bw = np.concatenate(
+            [ann.boxes, np.ones((ann.boxes.shape[0], 1), np.float32)], axis=-1)
+        tile1, boxes = stage_image(img, staged_size, bw)
+        tile2, lam = None, 1.0
+        labels = ann.labels
+        img_idx = ann.index
+        h, w = tile_extent(img.shape, staged_size)
+
+    color = (0.0, 0.0, 1.0, 1.0)
+    if mode == "train":
+        if use_color_distort:
+            cp = augment.sample_color_distort(rng)
+            color = (cp.delta, cp.hue_delta, cp.sat_mult, cp.val_mult)
+        if rng.uniform() > 0.5:
+            oh, ow, oy, ox = augment.sample_expand(rng, h, w, max_ratio=4)
+        else:
+            oh, ow, oy, ox = h, w, 0, 0
+        boxes = boxes.copy()
+        boxes[:, 0:4] += np.array([ox, oy, ox, oy], boxes.dtype)
+        boxes, labels, (cx, cy, cw, ch) = augment.random_crop_with_constraints(
+            boxes, (ow, oh), rng, labels=labels)
+        interp = int(rng.integers(0, 5))
+        boxes = augment.remap_boxes_resize(boxes, cw, ch, img_size[0],
+                                           img_size[1], letterbox)
+        fx, _ = augment.sample_flip(rng, px=0.5)
+        boxes = augment.flip_boxes(boxes, img_size[1], img_size[0], fx, False)
+        crop = (cx - ox, cy - oy, cw, ch)
+    else:
+        boxes = augment.remap_boxes_resize(boxes, w, h, img_size[0],
+                                           img_size[1], letterbox)
+        crop = (0, 0, w, h)
+        interp, fx = 1, False
+
+    if letterbox:
+        _, rw, rh, dw, dh = augment.letterbox_params(
+            crop[2], crop[3], img_size[0], img_size[1])
+    else:
+        rw, rh, dw, dh = img_size[0], img_size[1], 0, 0
+
+    plan = ExamplePlan(
+        staged=tile1, staged2=tile2, lam=lam, color=color,
+        crop_x0=int(crop[0]), crop_y0=int(crop[1]), crop_w=int(crop[2]),
+        crop_h=int(crop[3]), rw=rw, rh=rh, dw=dw, dh=dh, interp=interp,
+        flip=fx)
+    if emit_gt:
+        return img_idx, plan, (boxes, labels)
+    y_true = encode_labels(boxes, labels, img_size, num_classes, anchors)
+    return img_idx, plan, y_true
+
+
+def tile_extent(shape, staged_size: int) -> Tuple[int, int]:
+    """Valid (h, w) of an image once staged into a staged_size tile."""
+    h, w = shape[:2]
+    if max(h, w) > staged_size:
+        r = staged_size / max(h, w)
+        return max(int(h * r), 1), max(int(w * r), 1)
+    return h, w
 
 
 class DataLoader:
@@ -143,14 +250,16 @@ class DataLoader:
                  drop_remainder: bool = False,
                  shard_within_batch: Tuple[int, int] = (0, 1),
                  shard_batches: Tuple[int, int] = (0, 1),
-                 device_augment: bool = False, device_encode: bool = False,
+                 device_augment: bool = False, staged_size: int = 512,
+                 device_encode: bool = False, max_boxes: int = 64,
                  multi_scale_sizes: Optional[Sequence] = None):
         """`shard_within_batch=(i, P)` makes this loader produce only its
         1/P slice of every global batch (every process sees the same
         step, plan and multi-scale schedule; `batch_size` stays the global
         batch). `shard_batches=(i, P)` yields only plan batches i, i+P, ...
+        `device_augment` stages every image into a `staged_size` tile;
+        `device_encode` pads the ground truth to `max_boxes` rows.
         """
-        refuse_device_data_path(device_augment, device_encode)
         self.lines = read_annotation_file(annotation_file)
         self.num_classes = num_classes
         self.anchors = np.asarray(anchors, np.float32)
@@ -171,6 +280,10 @@ class DataLoader:
         self.drop_remainder = drop_remainder
         self.shard_within_batch = tuple(shard_within_batch)
         self.shard_batches = tuple(shard_batches)
+        self.device_augment = device_augment
+        self.staged_size = int(staged_size)
+        self.device_encode = device_encode
+        self.max_boxes = int(max_boxes)
         if self.shard_within_batch[1] > 1 \
                 and batch_size % self.shard_within_batch[1] != 0:
             raise ValueError(
@@ -236,15 +349,43 @@ class DataLoader:
         def work(slot_and_line):
             slot, line = slot_and_line
             rng = np.random.default_rng((self.seed, epoch, step, slot))
+            if self.device_augment:
+                return plan_example(line, self.num_classes, img_size,
+                                    self.anchors, self.mode, self.letterbox,
+                                    rng, self.use_color_distort,
+                                    self.staged_size,
+                                    emit_gt=self.device_encode)
             return parse_example(line, self.num_classes, img_size,
                                  self.anchors, self.mode, self.letterbox, rng,
-                                 self.use_color_distort)
+                                 self.use_color_distort,
+                                 emit_gt=self.device_encode)
 
         results = list(pool.map(work, enumerate(batch_lines, start=slot0)))
         ids = np.asarray([r[0] for r in results], np.int64)
-        y_true = tuple(np.stack([r[2][s] for r in results]) for s in range(3))
+        if self.device_encode:
+            y_true = None
+            padded = [pad_ground_truth(b, l, self.max_boxes)
+                      for _, _, (b, l) in results]
+            gt = {"gt_boxes": np.stack([p[0] for p in padded]),
+                  "gt_labels": np.stack([p[1] for p in padded]),
+                  "gt_mask": np.stack([p[2] for p in padded])}
+        else:
+            y_true = tuple(
+                np.stack([r[2][s] for r in results]) for s in range(3))
+            gt = {}
+        if self.device_augment:
+            plans = [r[1] for r in results]
+            staged = np.stack([p.staged for p in plans])
+            if any(p.staged2 is not None for p in plans):
+                zero = np.zeros_like(plans[0].staged)
+                staged2 = np.stack([p.staged2 if p.staged2 is not None
+                                    else zero for p in plans])
+            else:
+                staged2 = staged       # ignored when mixup is off
+            return Batch(ids, None, y_true, staged=staged, staged2=staged2,
+                         params=pack_plans(plans), img_size=img_size, **gt)
         images = np.stack([r[1] for r in results])
-        return Batch(ids, images, y_true, img_size=img_size)
+        return Batch(ids, images, y_true, img_size=img_size, **gt)
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         """Iterate one epoch with background prefetching."""

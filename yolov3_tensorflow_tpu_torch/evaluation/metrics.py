@@ -8,7 +8,7 @@ library where it is built, with the same formula).
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -89,19 +89,29 @@ def match_detections(pred_boxes: np.ndarray, pred_scores: np.ndarray,
 
 
 def evaluate_batch(dets: Dict[str, np.ndarray],
-                   y_true: Sequence[np.ndarray], num_classes: int,
-                   iou_thresh: float = 0.5) -> Tuple[float, float]:
+                   y_true: Optional[Sequence[np.ndarray]], num_classes: int,
+                   iou_thresh: float = 0.5,
+                   gt: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]
+                   = None) -> Tuple[float, float]:
     """Batch recall/precision from fixed-shape NMS output (the in-training
     evaluation).
 
     dets: numpy-converted output of ops.nms.batched_nms_auto
           ({"boxes" [B,M,4], "scores", "labels", "valid"}).
-    y_true: the 3 label grids, each [B, H, W, 3, 6+C].
+    y_true: the 3 label grids, each [B, H, W, 3, 6+C], or None with
+    gt=(boxes [B,M,5] xyxy, labels [B,M], mask [B,M]) in the loader's
+    device-encode mode, where the padded ground truth is the ground truth
+    and no grid occupancy scan is needed.
     """
-    batch = y_true[0].shape[0]
+    batch = (y_true[0] if y_true is not None else gt[0]).shape[0]
     tp_total, gt_total, pred_total = 0, 0, 0
     for i in range(batch):
-        true_boxes, true_labels = extract_gt_from_y_true(y_true, i)
+        if y_true is None:
+            m = gt[2][i].astype(bool)
+            true_boxes = gt[0][i][m, 0:4].astype(np.float32)
+            true_labels = gt[1][i][m]
+        else:
+            true_boxes, true_labels = extract_gt_from_y_true(y_true, i)
         gt_total += len(true_boxes)
         valid = dets["valid"][i].astype(bool)
         pred_total += int(valid.sum())

@@ -10,9 +10,17 @@ step (in-train evaluation and validation) is the live-BN eval forward, the
 loss, the decode and `ops.nms.batched_nms_auto`, which runs the per-group
 NMS kernel (K2, `csrc/nms.cu`) on a CUDA device.
 
-Multi-scale training needs no bucketing here: eager PyTorch runs every size.
-Data-parallel training (`train.num_data_parallel > 1`) is not ported yet
-(ROADMAP queue 1, item 11).
+With `data.device_augment` and `data.device_encode` the step begins with
+a prologue on the device: the augmentation of the staged uint8 tiles
+(`data/device_augment.py`) and the label grids from the padded ground
+truth (`data/device_encode.py`).
+
+Multi-scale training needs no bucketing here: eager PyTorch runs every
+size, so the JAX trainer's cache of one compiled step per bucket
+(`_train_step_cache`) has no counterpart, and where nothing in a device
+batch carries the resolution the step takes it from the loader's
+`batch.img_size`. Data-parallel training (`train.num_data_parallel > 1`)
+is not ported yet (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import numpy as np
 import torch
 
 from yolov3_tensorflow_tpu_torch.config import Config
-from yolov3_tensorflow_tpu_torch.data.loader import (DataLoader,
-                                                     refuse_device_data_path)
+from yolov3_tensorflow_tpu_torch.data.device_augment import augment_batch
+from yolov3_tensorflow_tpu_torch.data.device_encode import \
+    encode_labels_device
+from yolov3_tensorflow_tpu_torch.data.loader import Batch, DataLoader
 from yolov3_tensorflow_tpu_torch.evaluation.metrics import (
     AverageMeter, detections_to_pred_rows, evaluate_batch)
 from yolov3_tensorflow_tpu_torch.evaluation.voc import (evaluate_map,
@@ -59,18 +69,50 @@ def compute_dtype_of(cfg: Config) -> torch.dtype:
 
 
 def make_train_step(cfg: Config, optimizer: Optimizer,
-                    schedule: Optional[Callable[[int], float]] = None
-                    ) -> Callable:
+                    schedule: Optional[Callable[[int], float]] = None,
+                    device_augment: bool = False,
+                    device_encode: bool = False) -> Callable:
     """The train step: (state, images [N, H, W, 3], y_true (3 grids)) ->
     (new state, metrics). The metrics are 0-dim device tensors ("total",
     "xy", "wh", "conf", "class", "l2") and, with a schedule, "lr" =
-    schedule(new step), a Python float. The input state is not modified."""
+    schedule(new step), a Python float. The input state is not modified.
+
+    device_augment=True changes the images argument to the loader's
+    `(staged, staged2, params)` on the device: the augmentation runs first
+    (data/device_augment.py). The resolution comes from the y_true grids.
+
+    device_encode=True changes the y_true argument to the loader's padded
+    `(gt_boxes, gt_labels, gt_mask)`: the grids are scattered on the device
+    (data/device_encode.py). The resolution then comes from the images,
+    or, with device_augment on too (nothing in the batch carries it), from
+    the step's `out_size` argument (w, h), the batch's `img_size`, which
+    that step then requires.
+    """
     anchors = np.asarray(cfg.anchors, np.float32)
     m = cfg.model
     compute_dtype = compute_dtype_of(cfg)
 
-    def train_step(state: TrainState, images: torch.Tensor,
-                   y_true: Tuple[torch.Tensor, ...]):
+    def train_step(state: TrainState, images, y_true,
+                   out_size: Optional[Tuple[int, int]] = None):
+        if device_augment:
+            staged, staged2, aug = images
+            if device_encode:
+                if out_size is None:
+                    raise ValueError(
+                        "train step: device_augment + device_encode needs "
+                        "out_size=(w, h), the batch's img_size (nothing in "
+                        "the batch carries it)")
+                out_w, out_h = out_size
+            else:
+                out_h, out_w = (y_true[2].shape[1] * 8,
+                                y_true[2].shape[2] * 8)
+            images = augment_batch(staged, staged2, aug, (out_w, out_h),
+                                   mixup=cfg.data.use_mix_up,
+                                   distort=cfg.data.use_color_distort)
+        if device_encode:
+            y_true = tuple(encode_labels_device(
+                *y_true, (images.shape[2], images.shape[1]), m.num_classes,
+                anchors))
         img_size = (images.shape[1], images.shape[2])  # (h, w)
         flat = flatten(state["params"])
         live = {p: flat[p].detach().requires_grad_(True)
@@ -137,8 +179,55 @@ def make_eval_step(cfg: Config) -> Callable:
     return eval_step
 
 
-def _numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.cpu().numpy() for k, v in tree.items()}
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device: on a GPU pinned and copied without blocking
+    the host (the caching host allocator keeps the pinned block until its
+    copy has run)."""
+    t = torch.from_numpy(array)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def to_host(*trees: Dict[str, torch.Tensor]) -> Tuple[Dict[str, np.ndarray],
+                                                       ...]:
+    """Dicts of device tensors -> dicts of numpy arrays through one copy
+    and one wait: every tensor is packed into one float32 buffer, so the
+    integer and boolean tensors must hold values float32 keeps exactly (an
+    eval step's labels and valid flags, below 2^24)."""
+    items = [(i, k, v) for i, tree in enumerate(trees)
+             for k, v in tree.items()]
+    flat = torch.cat([v.detach().reshape(-1).to(torch.float32)
+                      for _, _, v in items]).cpu().numpy()
+    out: Tuple[Dict[str, np.ndarray], ...] = tuple({} for _ in trees)
+    offset = 0
+    for i, k, v in items:
+        dtype = torch.empty((), dtype=v.dtype).numpy().dtype
+        out[i][k] = flat[offset:offset + v.numel()].reshape(
+            tuple(v.shape)).astype(dtype)
+        offset += v.numel()
+    return out
+
+
+def copied_arrays(batch: Batch) -> Dict[str, np.ndarray]:
+    """The host arrays of a loader batch that `Trainer._train_args` copies
+    to the device, by name: "images" or, in device-augment mode, "staged",
+    "staged2" (absent when it is staged itself, as without mixup) and
+    "params.<key>"; the "y_true.<i>" grids or, in device-encode mode,
+    "gt_boxes", "gt_labels" and "gt_mask"."""
+    if batch.images is None:
+        arrays = {"staged": batch.staged}
+        if batch.staged2 is not batch.staged:
+            arrays["staged2"] = batch.staged2
+        arrays.update({f"params.{k}": v for k, v in batch.params.items()})
+    else:
+        arrays = {"images": batch.images}
+    if batch.y_true is None:
+        arrays.update(gt_boxes=batch.gt_boxes, gt_labels=batch.gt_labels,
+                      gt_mask=batch.gt_mask)
+    else:
+        arrays.update({f"y_true.{i}": y for i, y in enumerate(batch.y_true)})
+    return arrays
 
 
 class Trainer:
@@ -158,8 +247,6 @@ class Trainer:
                 f"train.num_data_parallel={cfg.train.num_data_parallel}: "
                 f"data-parallel training is not ported yet (ROADMAP queue "
                 f"1, item 11); train on one device")
-        refuse_device_data_path(cfg.data.device_augment,
-                                cfg.data.device_encode)
         self.cfg = cfg
         self.seed = seed
         self.device = device
@@ -198,8 +285,10 @@ class Trainer:
             t.optimizer, self.schedule, momentum=t.momentum,
             rmsprop_decay=t.rmsprop_decay, grad_clip_norm=t.grad_clip_norm,
             update_mask=path_prefix_mask(variables["params"], t.update_part))
-        self._train_step = make_train_step(self.cfg, self.optimizer,
-                                           schedule=self.schedule)
+        d = self.cfg.data
+        self._train_step = make_train_step(
+            self.cfg, self.optimizer, schedule=self.schedule,
+            device_augment=d.device_augment, device_encode=d.device_encode)
         self._eval_step = make_eval_step(self.cfg)
         return {"params": variables["params"],
                 "batch_stats": variables["batch_stats"],
@@ -207,15 +296,44 @@ class Trainer:
                 "step": int(t.global_step)}
 
     def _put(self, array: np.ndarray) -> torch.Tensor:
-        """Host batch -> device: pinned, copied without blocking the host."""
-        t = torch.from_numpy(array)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return to_device(array, self.device)
 
-    def _put_batch(self, batch) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        return self._put(batch.images), tuple(self._put(y)
-                                              for y in batch.y_true)
+    def _train_args(self, batch: Batch) -> Tuple[Any, Tuple[torch.Tensor,
+                                                             ...]]:
+        """A loader batch of either mode as the train or eval step's
+        (images, y_true) arguments on the device: in device-augment mode the
+        staged tiles and the plan parameters, in device-encode mode the
+        padded ground truth. The arrays of `copied_arrays`, each copied
+        once by `to_device`."""
+        t = {k: self._put(v) for k, v in copied_arrays(batch).items()}
+        if batch.images is None:
+            images = (t["staged"], t.get("staged2", t["staged"]),
+                      {k: t[f"params.{k}"] for k in batch.params})
+        else:
+            images = t["images"]
+        if batch.y_true is None:
+            y_true = (t["gt_boxes"], t["gt_labels"], t["gt_mask"])
+        else:
+            y_true = tuple(t[f"y_true.{i}"] for i in range(len(batch.y_true)))
+        return images, y_true
+
+    def _batch_images(self, batch: Batch, images) -> torch.Tensor:
+        """The images of a loader batch, given its train-step argument:
+        augmented on the device in device-augment mode."""
+        if batch.images is not None:
+            return images
+        d = self.cfg.data
+        return augment_batch(*images, tuple(batch.img_size),
+                             mixup=d.use_mix_up, distort=d.use_color_distort)
+
+    def _batch_y_true(self, batch: Batch, y_true) -> Tuple[torch.Tensor, ...]:
+        """The label grids of a loader batch, given its train-step argument:
+        scattered on the device in device-encode mode."""
+        if batch.y_true is not None:
+            return y_true
+        return tuple(encode_labels_device(
+            *y_true, tuple(batch.img_size), self.cfg.model.num_classes,
+            np.asarray(self.cfg.anchors, np.float32)))
 
     def restore_into(self, state: TrainState, path: str) -> TrainState:
         """Partial restore honoring train.restore_include/exclude."""
@@ -284,19 +402,24 @@ class Trainer:
                     "need modify some parameters.")
 
         for batch in loader.epoch(epoch):
-            images, y_true = self._put_batch(batch)
-            state, metrics = self._train_step(state, images, y_true)
+            images, y_true = self._train_args(batch)
+            state, metrics = self._train_step(state, images, y_true,
+                                              out_size=batch.img_size)
             step += 1
-            pending.append((step, batch.images.shape[0], metrics))
+            pending.append((step, len(batch.image_ids), metrics))
             eval_now = (cfg.train.train_evaluation_step and step > 0
                         and step % cfg.train.train_evaluation_step == 0)
             if len(pending) >= flush_every or eval_now:
                 flush()
             if eval_now:
-                _, dets = self._eval_step(state, images, y_true)
+                _, dets = self._eval_step(
+                    state, self._batch_images(batch, images),
+                    self._batch_y_true(batch, y_true))
                 recall, precision = evaluate_batch(
-                    _numpy(dets), batch.y_true, cfg.model.num_classes,
-                    cfg.eval.eval_threshold)
+                    to_host(dets)[0], batch.y_true, cfg.model.num_classes,
+                    cfg.eval.eval_threshold,
+                    gt=(None if batch.y_true is not None else
+                        (batch.gt_boxes, batch.gt_labels, batch.gt_mask)))
                 info = (f"Epoch: {epoch}, global_step: {step} | "
                         f"loss: total: {meters['total'].average:.2f}, "
                         f"xy: {meters['xy'].average:.2f}, "
@@ -335,10 +458,9 @@ class Trainer:
         val_meters = {k: AverageMeter() for k in LOSS_TERMS}
         rows = []
         for batch in val_loader.epoch(0):
-            losses, dets = self._eval_step(state, *self._put_batch(batch))
-            losses_np = _numpy(losses)
-            rows.extend(detections_to_pred_rows(_numpy(dets),
-                                                batch.image_ids))
+            losses, dets = self._eval_step(state, *self._train_args(batch))
+            losses_np, dets_np = to_host(losses, dets)
+            rows.extend(detections_to_pred_rows(dets_np, batch.image_ids))
             for k in val_meters:
                 val_meters[k].update(float(losses_np[k]),
                                      batch.images.shape[0])
@@ -404,7 +526,11 @@ class Trainer:
             use_mix_up=cfg.data.use_mix_up,
             use_color_distort=cfg.data.use_color_distort,
             num_threads=cfg.data.num_threads,
-            prefetch=cfg.data.prefetch_buffer, seed=self.seed)
+            prefetch=cfg.data.prefetch_buffer, seed=self.seed,
+            device_augment=cfg.data.device_augment,
+            staged_size=cfg.data.staged_size,
+            device_encode=cfg.data.device_encode,
+            max_boxes=cfg.data.max_boxes_per_image)
         val_loader = DataLoader(
             cfg.data.val_file, cfg.model.num_classes, cfg.anchors,
             cfg.eval.batch_size, cfg.data.img_size, mode="val",

@@ -1,2 +1,2 @@
 """Support code: building the CUDA kernels, profiling, the summary writer,
-class names and drawing."""
+class names, drawing and the anchor k-means."""

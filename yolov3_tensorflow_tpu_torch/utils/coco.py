@@ -1,5 +1,6 @@
-"""The 80 COCO class names in darknet order (a standard public list), copied
-from the JAX package's `utils/coco.py`; a test holds the two equal."""
+"""The 80 COCO class names in darknet order (a standard public list) and the
+20 PASCAL VOC class names, copied from the JAX package's `utils/coco.py`;
+tests hold the copies equal."""
 
 COCO_CLASS_NAMES = (
     "person", "bicycle", "car", "motorbike", "aeroplane", "bus", "train",
@@ -15,4 +16,10 @@ COCO_CLASS_NAMES = (
     "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
     "refrigerator", "book", "clock", "vase", "scissors", "teddy bear",
     "hair drier", "toothbrush",
+)
+
+VOC_CLASS_NAMES = (
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
 )
