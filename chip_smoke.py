@@ -144,7 +144,43 @@ Phases, in order; any failure exits non-zero before the last line:
    cli.detect_image draws the same boxes from both; cli.strip_checkpoint
    of the gate's best checkpoint drops its optimizer state and
    cli.evaluate of it gives the gate's mAP.
-14. prints the kernel record and the device record as JSON; the last line
+14. int8 serving, on phase 4's tree (spread head) at COCO-80, 416x416,
+   and phase 13's directory. The detectors of the slice built through their
+   entry points, each calibrated on 8 seeded images: build_detector_int8 in
+   modes packed, prefilter and chained, build_detector(mode="stem8") at
+   upto 12 and 9, build_auto_detector under quantize none, hybrid and full.
+   The int8 GEMM route (ops.int8_conv: im2col + torch._int_mm) bit-equal
+   to its float64 reference at batch 8 with the quantized weights of
+   conv_0 (K 27 padded to 32), the stride-2 conv_1, the 1x1 conv_2, head
+   conv_1 at 13^2 and both halves of the chained head conv_8. Each
+   detector answers a request at batch 8 and at 128: finite outputs of
+   the right shape, detections in every image, one shared-candidate
+   launch and its int8 GEMMs per request (72 full int8, 74 chained, 12 and
+   9 stem8, 0 / 12 / 72 auto none / hybrid / full; no silent float path),
+   and the kernel bit-equal to its plain version on the last request's
+   candidates. The int8 packed, prefilter and chained detectors on the GPU
+   and on the CPU (plain NMS), both quantized with the GPU's activation
+   scales, find the same detections on 2 images (same label, IoU >= 0.9,
+   score >= 0.32); stem8's int8 region (conv_0..11) gives the same bf16
+   output on both (its bf16 remainder is the packed path's, compared in
+   fp32 in phase 4).
+   scripts/validate_quantized.py on the reduced gate's checkpoint and 16
+   images, calibrated on the first 8 (the JAX script's procedure) and on
+   all 16: int8, chained and stem8 mAP within 0.01 of bf16's, packed
+   identity >= 0.95, stem8 identity >= 0.95 when calibrated on all 16
+   (printed for 8), the per-group kernel once per exact-eval batch; the
+   int8 packed and chained detectors' identity, printed.
+   Timings: int8 packed, chained and stem8 in turns with the bf16 packed
+   detector at batch 8 and 128 (ms per batch, img/s, device busy, idle
+   share, peak memory); torch.profiler's split of the int8 packed forward
+   at batch 128 into GEMM, quantize, patch build and the rest;
+   torch._int_mm's TOPS at 8192^3 against the 1979 TOPS dense int8 peak;
+   packed, stem8 and int8 img/s at 416^2 batch 128, 608^2 batch 80 and
+   896x1344 batch 16 beside select_serving_mode's pick. cli.detect_image
+   --mode int8, --mode stem8 and --mode auto --quantize full / hybrid /
+   none on phase 13's 480x640 jpg: rc 0, boxes drawn, one shared-candidate
+   launch per call.
+15. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -207,6 +243,14 @@ STAGED = 608                           # device-mode tiles: the largest bucket
 PIXEL_EQUAL = 0.995                    # augment_batch GPU == CPU, share
 GATE_IMAGES = 16                       # the reduced overfit gate's images
 GATE_EPOCHS = 450                      # and epochs (PERF.md says why)
+CALIB_IMAGES = 8                       # int8 calibration images
+INT8_BATCHES = (8, 128)                # int8 request batches
+INT8_MAP_DELTA = 0.01                  # int8 mAP within this of bf16's
+IDENTITY_MIN = 0.95                    # packed and stem8 detection identity
+INT8_PEAK_TOPS = 1979.0                # H100 SXM dense int8 (data sheet)
+INT_MM_SIZE = 8192                     # the square _int_mm of the rate
+# the H100 mode table at the JAX package's benched sizes: (h, w), batch
+MODE_TABLE = (((416, 416), 128), ((608, 608), 80), ((896, 1344), 16))
 
 
 def fail(msg: str) -> None:
@@ -1387,19 +1431,556 @@ def gate_check(dev: torch.device, card: str, tmp: Path) -> None:
 
 
 def device_data_phase(dev: torch.device, card: str, anchors: np.ndarray,
-                      variables: dict, host_steps: dict) -> None:
+                      variables: dict, host_steps: dict, tmp: Path) -> Path:
     """Phase 13: the device data path, the reduced overfit gate and the
-    checkpoint CLIs (see the module docstring)."""
+    checkpoint CLIs (see the module docstring), in the directory `tmp`.
+    Returns the gate's directory (its data and checkpoints)."""
     from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        train = generate_dataset(str(tmp / "train"), TRAIN_IMAGES, seed=0,
-                                 img_size=(SIZE, SIZE), prefix="train")
-        data_path_check(dev, card, train["annotation_file"], anchors)
-        device_timings(dev, card, train["annotation_file"], anchors,
-                       host_steps)
-        convert_check(dev, variables, tmp)
-        gate_check(dev, card, tmp)
+    train = generate_dataset(str(tmp / "train"), TRAIN_IMAGES, seed=0,
+                             img_size=(SIZE, SIZE), prefix="train")
+    data_path_check(dev, card, train["annotation_file"], anchors)
+    device_timings(dev, card, train["annotation_file"], anchors, host_steps)
+    convert_check(dev, variables, tmp)
+    gate_check(dev, card, tmp)
+    return tmp / "gate"
+
+
+def int8_gemm_check(dev: torch.device, qp: dict, qc: dict) -> None:
+    """Phase 14, part 1: the int8 GEMM route (im2col + torch._int_mm)
+    against the float64 reference, bit for bit, at batch 8 on seeded int8
+    inputs, with the quantized weights of conv_0 (K = 27 padded to 32), the
+    stride-2 conv_1, the 1x1 conv_2, head conv_1 (3x3 at 13^2) and both
+    halves of the chained head conv_8."""
+    from yolov3_tensorflow_tpu_torch.ops import int8_conv as I8
+    gen = torch.Generator(device=dev).manual_seed(14)
+    s = SIZE
+
+    def int8(shape):
+        n, c, h, w = shape
+        return torch.randint(-127, 128, (n, h, w, c), generator=gen,
+                             device=dev, dtype=torch.int8).permute(0, 3, 1, 2)
+
+    conv8 = qc["head"]["conv_8"]
+    cases = [("backbone/conv_0", qp["backbone"]["conv_0"], 1, (8, 3, s, s)),
+             ("backbone/conv_1 (stride 2)", qp["backbone"]["conv_1"], 2,
+              (8, 32, s, s)),
+             ("backbone/conv_2 (1x1)", qp["backbone"]["conv_2"], 1,
+              (8, 64, s // 2, s // 2)),
+             ("head/conv_1 (3x3 at 13^2)", qp["head"]["conv_1"], 1,
+              (8, 512, s // 32, s // 32))]
+    for name, entry, stride, shape in cases:
+        x8 = int8(shape)
+        got = I8.conv_int8(x8, entry["wt"], entry["w8"].shape[1], stride)
+        want = I8.conv_int8_reference(x8, entry["w8"], stride)
+        torch.cuda.synchronize()
+        print(f"int8 GEMM {name}: x {tuple(shape)}, wt "
+              f"{tuple(entry['wt'].shape)} -> {tuple(got.shape)} int32; "
+              f"equal to the float64 reference: {torch.equal(got, want)}")
+        check(torch.equal(got, want), f"int8 GEMM {name} differs from the "
+                                      f"float64 reference")
+    ca = 256
+    for half, x8, wt, w8 in (
+            ("a (upsampled lateral)", int8((8, ca, s // 16, s // 16)),
+             conv8["wt"][:, :ca].contiguous(), conv8["w8"][..., :ca]),
+            ("b (route_2)", int8((8, 512, s // 16, s // 16)),
+             conv8["wt"][:, ca:].contiguous(), conv8["w8"][..., ca:])):
+        got = I8.conv_int8(x8, wt, 1, 1)
+        want = I8.conv_int8_reference(x8, w8, 1)
+        torch.cuda.synchronize()
+        print(f"int8 GEMM chained head/conv_8, half {half}: "
+              f"{tuple(got.shape)} int32; equal to the float64 reference: "
+              f"{torch.equal(got, want)}")
+        check(torch.equal(got, want), f"int8 GEMM head/conv_8 half {half} "
+                                      f"differs from the float64 reference")
+
+
+def int8_detectors(dev: torch.device, variables: dict, anchors: np.ndarray,
+                   calib: torch.Tensor) -> dict:
+    """Phase 14, part 2: every quantized detector of the slice, built from
+    the entry points on `calib`, with its int8 GEMMs per request: name ->
+    (detector, GEMMs)."""
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import (
+        build_auto_detector, build_detector)
+    from yolov3_tensorflow_tpu_torch.ops.quantize import build_detector_int8
+    kw = dict(device=dev, **SERVING)
+    dets = {}
+    for mode, gemms in (("packed", 72), ("prefilter", 72), ("chained", 74)):
+        dets[f"int8 {mode}"] = (build_detector_int8(
+            variables, anchors, C, (SIZE, SIZE), calibration_images=calib,
+            mode=mode, **kw)[0], gemms)
+    for upto in (12, 9):
+        dets[f"stem8 upto {upto}"] = (build_detector(
+            variables, anchors, C, (SIZE, SIZE), mode="stem8",
+            calibration_images=calib, stem_int8_upto=upto, **kw), upto)
+    for quantize, gemms in (("none", 0), ("hybrid", 12), ("full", 72)):
+        dets[f"auto {quantize}"] = (build_auto_detector(
+            variables, anchors, C, (SIZE, SIZE), quantize=quantize,
+            calibration_images=calib, **kw), gemms)
+    return dets
+
+
+def int8_candidates(det, images: torch.Tensor):
+    """The shared-candidate kernel's inputs of one request of `det` (a
+    QuantizedDetector, or the bf16 PackedDetector of auto under none)."""
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        packed_candidates, prefilter_candidates, yolov3_forward_packed)
+    with torch.inference_mode():
+        if hasattr(det, "forward_fn"):
+            outs = det.forward_fn(det.params, images)
+        else:
+            outs = yolov3_forward_packed(det.packed, images,
+                                         compute_dtype=torch.bfloat16)
+        pick = prefilter_candidates if getattr(det, "post", "") == \
+            "prefilter" else packed_candidates
+        return pick(outs, C, det.tables, det.box_topk)
+
+
+def int8_requests(dets: dict, batches: dict, max_err: dict) -> None:
+    """Phase 14, part 3: each detector answers a request at batch 8 and one
+    at batch 128, with the kernel counts and the int8 GEMM count set to 0
+    just before each and read just after: finite outputs of the right
+    shape, a detection in every image, one shared-candidate launch and the
+    detector's int8 GEMMs per request; then the kernel against its plain
+    version on the last request's own candidates."""
+    from yolov3_tensorflow_tpu_torch.ops import int8_conv as I8
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    st, it = SERVING["score_thresh"], SERVING["iou_thresh"]
+    for name, (det, gemms) in dets.items():
+        for b in INT8_BATCHES:
+            torch.cuda.synchronize()
+            nms_cuda.nms_keep_mask_shared.launches = 0
+            nms_cuda.nms_keep_mask.launches = 0
+            I8.int8_gemm.calls = 0
+            out = det(batches[b])
+            torch.cuda.synchronize()
+            k1, k2 = (nms_cuda.nms_keep_mask_shared.launches,
+                      nms_cuda.nms_keep_mask.launches)
+            calls = I8.int8_gemm.calls
+            check_requests([out], [b], SERVING["max_out"], name)
+            print(f"{name} request batch {b}: nms_shared launches {k1}, nms "
+                  f"launches {k2}, int8 GEMMs (torch._int_mm) {calls}")
+            check((k1, k2) == (1, 0), f"{name}: launches (nms_shared, nms) "
+                                      f"{(k1, k2)} per request, want (1, 0)")
+            check(calls == gemms, f"{name}: {calls} int8 GEMMs per request, "
+                                  f"want {gemms}")
+        boxes, scores = int8_candidates(det, batches[INT8_BATCHES[-1]])
+        keep = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+        want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores, st, it)
+        torch.cuda.synchronize()
+        err = float((keep.float() - want.float()).abs().max())
+        max_err["nms_shared"] = max(max_err["nms_shared"], err)
+        print(f"{name} candidates B={boxes.shape[0]} K={boxes.shape[1]}: "
+              f"kept {int(want.sum())} of {int((scores >= st).sum())} valid; "
+              f"kernel == plain: {err == 0.0}")
+        check(err == 0.0, f"{name}: kernel and plain keep masks differ")
+
+
+def stem_handoff(hp: dict, images: torch.Tensor) -> torch.Tensor:
+    """The stem8 forward's int8 region alone: conv_{upto-1}'s bf16 output,
+    which the forward hands to its first bf16 conv (caught there)."""
+    from yolov3_tensorflow_tpu_torch.ops import quantize
+
+    class Handoff(Exception):
+        pass
+
+    def first_bf16_conv(x, *args, **kw):
+        raise Handoff(x)
+
+    folded_conv = quantize.conv_folded
+    quantize.conv_folded = first_bf16_conv
+    try:
+        with torch.inference_mode():
+            quantize.yolov3_forward_stem_int8_packed(hp, images)
+    except Handoff as h:
+        return h.args[0]
+    finally:
+        quantize.conv_folded = folded_conv
+    raise AssertionError("the stem8 forward never reached a bf16 conv")
+
+
+def int8_gpu_vs_cpu(dev: torch.device, variables: dict, anchors: np.ndarray,
+                    calib: torch.Tensor, images: torch.Tensor) -> None:
+    """Phase 14, part 4: the int8 detectors (packed, prefilter, chained) on
+    the GPU and on the CPU (plain NMS) on 2 images: same label, IoU >= 0.9,
+    for every detection scored at least 0.02 above the threshold. stem8
+    (upto 12): its int8 region's output (conv_11's bf16 handoff) bit-equal
+    on both devices; its detections, whose 63 later convs run in bf16
+    (cuDNN's sums against the CPU's, as the bf16 packed detector, which
+    phase 4 compares in fp32), are counted and printed. Both devices
+    quantize with the GPU's activation scales (the calibration is a bf16
+    forward, which the devices sum differently)."""
+    from yolov3_tensorflow_tpu_torch.ops import postprocess, quantize
+    from yolov3_tensorflow_tpu_torch.testing import match_detections
+    cpu = torch.device("cpu")
+    scales = quantize.calibrate_activation_scales(variables, calib)
+    host_vars = to_device(variables, cpu)
+    original = quantize.calibrate_activation_scales
+    try:
+        for module in (quantize, postprocess):
+            module.calibrate_activation_scales = lambda *a, **k: scales
+        for mode in ("packed", "prefilter", "chained", "stem8"):
+            pair, handoff = [], []
+            for d, v in ((dev, variables), (cpu, host_vars)):
+                if mode == "stem8":
+                    det = postprocess.build_detector(
+                        v, anchors, C, (SIZE, SIZE), device=d, mode="stem8",
+                        calibration_images=calib, **SERVING)
+                    handoff.append(stem_handoff(det.params, images.to(d)))
+                else:
+                    det = quantize.build_detector_int8(
+                        v, anchors, C, (SIZE, SIZE), device=d, mode=mode,
+                        calibration_images=calib, **SERVING)[0]
+                pair.append(detections(det(images.to(d)), 2))
+            if mode != "stem8":
+                same_detections(pair[1], pair[0],
+                                SERVING["score_thresh"] + 0.02,
+                                f"int8 {mode} GPU vs CPU")
+                continue
+            equal = torch.equal(handoff[0].cpu(), handoff[1])
+            n1, f1 = match_detections(pair[1], pair[0],
+                                      SERVING["score_thresh"] + 0.02)
+            n2, f2 = match_detections(pair[0], pair[1],
+                                      SERVING["score_thresh"] + 0.02)
+            print(f"stem8 GPU vs CPU: the int8 region's output "
+                  f"{tuple(handoff[1].shape)} bf16 bit-equal: {equal}; "
+                  f"detections after the bf16 remainder {f1}/{n1} found one "
+                  f"way, {f2}/{n2} the other (score >= 0.32)")
+            check(equal, "stem8: the int8 region's output differs between "
+                         "the GPU and the CPU")
+    finally:
+        quantize.calibrate_activation_scales = original
+        postprocess.calibrate_activation_scales = original
+
+
+def int8_accuracy(dev: torch.device, card: str, gate_dir: Path) -> None:
+    """Phase 14, part 5: scripts/validate_quantized.py on the reduced
+    overfit gate's checkpoint and its GATE_IMAGES images (phase 13), twice:
+    calibrated on the first 8 images, as the JAX script calibrates, and on
+    all of them. Both: int8, int8-chained and stem8 (upto 12) mAP through
+    the exact eval path within INT8_MAP_DELTA of bf16's, packed detection
+    identity at least IDENTITY_MIN, and the per-group kernel once per
+    exact-eval batch (4 forwards x the batches). stem8's identity is held
+    to IDENTITY_MIN when the calibration covers every evaluated image; with
+    8 it is printed (the other 8 images clip at the 8-image scales and move
+    boxes, PERF.md). Then the identity of the int8 packed and chained
+    detectors (calibrated on all the images) against the same prefilter
+    path, printed."""
+    import argparse
+    import math
+
+    from yolov3_tensorflow_tpu_torch.cli.common import load_variables
+    from yolov3_tensorflow_tpu_torch.config import Config
+    from yolov3_tensorflow_tpu_torch.data.loader import DataLoader
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.ops.quantize import build_detector_int8
+    from yolov3_tensorflow_tpu_torch.scripts import validate_quantized
+    data = gate_dir / "data"
+    ckpt, names = gate_dir / "ckpt" / "overfit_final", data / "synth.names"
+    for calib_images in (8, GATE_IMAGES):
+        args = argparse.Namespace(
+            ckpt=str(ckpt), data=str(data / "train.txt"), names=str(names),
+            img_size=SIZE, stem_upto=12, calib_images=calib_images,
+            device=str(dev), out="")
+        torch.cuda.synchronize()
+        nms_cuda.nms_keep_mask.launches = 0
+        t0 = time.perf_counter()
+        summary = validate_quantized.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2 = nms_cuda.nms_keep_mask.launches
+        batches = math.ceil(summary["images"] / 8)
+        print(f"validate_quantized on the reduced gate "
+              f"({summary['images']} images, {SIZE}^2, calibrated on "
+              f"{calib_images}): {json.dumps(summary)}; nms launches {k2} "
+              f"({batches} batches x 4 exact-eval forwards); {wall:.1f} s "
+              f"wall [{card}]")
+        check(k2 == 4 * batches, f"validate_quantized: {k2} nms launches, "
+                                 f"want {4 * batches}")
+        for key in ("mAP_int8", "mAP_int8_chained", "mAP_stem_int8"):
+            check(abs(summary[key] - summary["mAP_bf16"]) <= INT8_MAP_DELTA,
+                  f"validate_quantized: {key} {summary[key]} against "
+                  f"bf16's {summary['mAP_bf16']}")
+        held = ["packed_serving_identity"]
+        if calib_images == summary["images"]:
+            held.append("stem_int8_identity")
+        for key in held:
+            check(summary[key] >= IDENTITY_MIN,
+                  f"validate_quantized (calibrated on {calib_images}): "
+                  f"{key} {summary[key]}")
+
+    cfg = Config()
+    cfg.data.class_name_path = str(names)
+    cfg.finalize()
+    anchors = np.asarray(cfg.anchors, np.float32)
+    n_cls = cfg.model.num_classes
+    variables = load_variables(str(ckpt), n_cls, dev)
+    loader = DataLoader(str(data / "train.txt"), n_cls, anchors, 8,
+                        (SIZE, SIZE), mode="val", letterbox=True,
+                        num_threads=8)
+    images = [torch.from_numpy(b.images).to(dev) for b in loader.epoch(0)]
+    exact = build_detector(variables, anchors, n_cls, (SIZE, SIZE),
+                           device=dev, mode="prefilter", max_out=50,
+                           box_topk=128, pre_topk=128, score_thresh=0.3,
+                           iou_thresh=0.45)
+    for mode in ("packed", "chained"):
+        det = build_detector_int8(variables, anchors, n_cls, (SIZE, SIZE),
+                                  calibration_images=torch.cat(images),
+                                  device=dev, mode=mode, **SERVING)[0]
+        total, matched, dev_max = validate_quantized.identity_vs_exact(
+            exact, det, images)
+        print(f"int8 {mode} against the prefilter path on the reduced gate "
+              f"(calibrated on all {GATE_IMAGES}): identity "
+              f"{matched / max(total, 1):.4f} ({matched} of {total} at IoU "
+              f">= 0.98), max score deviation {dev_max:.5f} [{card}]")
+
+
+def int8_split(card: str, det, images: torch.Tensor) -> None:
+    """Phase 14, part 7: torch.profiler's split of the int8 packed forward
+    (`det.forward_fn`) at `images`' batch into the integer GEMMs, the
+    quantize passes, the patch builds and the rest (the epilogues, the
+    bf16 detection convs, upsamples and casts): each of
+    ops.int8_conv.{int8_gemm, quantize, im2col} runs inside a named
+    record_function for the profiled calls only, and its device time is
+    that of the kernels inside the range's device spans."""
+    import bisect
+    import itertools
+
+    from yolov3_tensorflow_tpu_torch.ops import int8_conv as I8
+    from yolov3_tensorflow_tpu_torch.utils.profiling import union_length
+    names = {"int8_gemm": "int8/gemm", "quantize": "int8/quantize",
+             "im2col": "int8/im2col"}
+    originals = {n: getattr(I8, n) for n in names}
+
+    def named(fn, label):
+        @functools.wraps(fn)             # int8_gemm's count lives on it
+        def wrapper(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return wrapper
+
+    iters = 3
+    with torch.inference_mode():
+        det.forward_fn(det.params, images)
+        torch.cuda.synchronize()
+        try:
+            for n, label in names.items():
+                setattr(I8, n, named(originals[n], label))
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    det.forward_fn(det.params, images)
+                torch.cuda.synchronize()
+        finally:
+            for n, fn in originals.items():
+                setattr(I8, n, fn)
+    # on the device timeline each named range is an annotation spanning the
+    # kernels launched inside it (one stream: nothing else runs there); a
+    # range's time is the kernel time inside its spans, the rest is busy
+    # time outside every span
+    cuda = torch.autograd.DeviceType.CUDA
+    labels = set(names.values())
+    device = [e for e in prof.events() if e.device_type == cuda]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in device
+                     if e.name not in labels)
+    busy = union_length(kernels) / 1e3 / iters
+    starts = [k0 for k0, _ in kernels]
+    reach = list(itertools.accumulate((k1 for _, k1 in kernels), max))
+    parts = dict.fromkeys(sorted(labels), 0.0)
+    for e in device:
+        if e.name in labels:
+            lo, hi = e.time_range.start, e.time_range.end
+            inside = kernels[bisect.bisect_right(reach, lo):
+                             bisect.bisect_left(starts, hi)]
+            parts[e.name] += union_length(
+                [(max(k0, lo), min(k1, hi)) for k0, k1 in inside]
+            ) / 1e3 / iters
+    check(busy > 0 and parts["int8/gemm"] > 0,
+          "the profiler saw no device time in the int8 forward")
+    rest = busy - sum(parts.values())
+    shares = ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                       for k, v in parts.items())
+    print(f"int8 packed forward at batch {images.shape[0]}, torch.profiler: "
+          f"device busy {busy:.3f} ms per forward: {shares}; epilogues, "
+          f"bf16 detection convs and the rest {rest:.3f} ms "
+          f"({rest / busy:.1%}) [{card}]")
+
+
+def int_mm_rate(dev: torch.device, card: str) -> None:
+    """Phase 14, part 8: torch._int_mm's rate at a large square shape
+    (both operands K-major, as the convs call it) against the data sheet's
+    dense int8 peak, beside the weight row-major and torch.mm in bf16 at
+    the same shape."""
+    from yolov3_tensorflow_tpu_torch.utils.profiling import cuda_ms
+    m = INT_MM_SIZE
+    gen = torch.Generator(device=dev).manual_seed(8)
+    a = torch.randint(-127, 128, (m, m), generator=gen, device=dev,
+                      dtype=torch.int8)
+    bt = torch.randint(-127, 128, (m, m), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ms = cuda_ms(lambda: torch._int_mm(a, bt.t()), 20)
+    b = bt.t().contiguous()
+    row_ms = cuda_ms(lambda: torch._int_mm(a, b), 5)
+    ah, bh = a.bfloat16(), bt.bfloat16()
+    bf_ms = cuda_ms(lambda: torch.mm(ah, bh.t()), 20)
+    ops = 2.0 * m ** 3
+    print(f"torch._int_mm {m}x{m}x{m} int8 -> int32: {ms:.4f} ms, "
+          f"{ops / ms / 1e9:.1f} TOPS, {ops / ms / 1e9 / INT8_PEAK_TOPS:.1%} "
+          f"of the {INT8_PEAK_TOPS:.0f} TOPS dense int8 peak (the weight "
+          f"row-major instead of K-major: {row_ms:.4f} ms, "
+          f"{ops / row_ms / 1e9:.1f} TOPS); torch.mm bf16 at the same shape "
+          f"{bf_ms:.4f} ms, {ops / bf_ms / 1e9:.1f} TF/s [{card}]")
+    del a, b, bt, ah, bh
+
+
+def int8_timings(card: str, dets: dict, packed, batches: dict) -> dict:
+    """Phase 14, part 6: ms per batch (back-to-back calls, host gaps
+    included) of the int8 packed, chained and stem8 (upto 12) detectors
+    in turns with the bf16 packed detector (order p x y z z y x p, the two
+    readings of each averaged), then each detector's device busy time,
+    idle share and peak memory (the call's own above what is resident).
+    Returns name -> batch -> ms."""
+    from yolov3_tensorflow_tpu_torch.utils.profiling import device_busy_ms
+    named = {"bf16 packed": packed}
+    for name in ("int8 packed", "int8 chained", "stem8 upto 12"):
+        named[name] = dets[name][0]
+    order = list(named) + list(named)[::-1]
+    out = {name: {} for name in named}
+    for b in INT8_BATCHES:
+        images = batches[b]
+        iters = 20 if b == 8 else 8
+        for name in named:
+            for _ in range(3):
+                named[name](images)
+        runs = {name: [] for name in named}
+        for name in order:
+            runs[name].append(call_ms(lambda: named[name](images), iters))
+        for name, det in named.items():
+            ms = out[name][b] = sum(runs[name]) / len(runs[name])
+            busy = device_busy_ms(lambda: det(images), 5)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            det(images)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{name} detector batch {b}: {ms:.3f} ms/batch (turns "
+                  f"{', '.join(f'{r:.3f}' for r in runs[name])}), "
+                  f"{b * 1000.0 / ms:.1f} img/s; device busy {busy:.3f} "
+                  f"ms/batch, idle share {max(0.0, 1 - busy / ms):.3f}; peak "
+                  f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f}"
+                  f" GiB above the resident) [{card}]")
+        base_ms = out["bf16 packed"][b]
+        print(f"batch {b}, ms against bf16 packed's {base_ms:.3f}: "
+              + ", ".join(f"{n} {out[n][b] / base_ms:.3f}x"
+                          for n in named if n != "bf16 packed"))
+    return out
+
+
+def mode_table(dev: torch.device, card: str, variables: dict,
+               anchors: np.ndarray) -> None:
+    """Phase 14, part 9: packed (bf16), stem8 (upto 12) and full int8
+    (packed head) img/s at the JAX package's benched sizes (MODE_TABLE),
+    each detector calibrated on 8 seeded images of its size and timed by
+    `call_ms`, beside the mode select_serving_mode picks under the hybrid
+    and full budgets."""
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import (
+        build_detector, select_serving_mode)
+    from yolov3_tensorflow_tpu_torch.ops.quantize import build_detector_int8
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for (h, w), b in MODE_TABLE:
+        images = torch.rand((b, h, w, 3), generator=gen, device=dev)
+        calib = images[:CALIB_IMAGES]
+        rates = {}
+        for mode in ("packed", "stem8", "int8"):
+            if mode == "int8":
+                det = build_detector_int8(variables, anchors, C, (h, w),
+                                          device=dev, mode="packed",
+                                          calibration_images=calib,
+                                          **SERVING)[0]
+            else:
+                det = build_detector(variables, anchors, C, (h, w),
+                                     device=dev, mode=mode,
+                                     calibration_images=calib, **SERVING)
+            for _ in range(2):
+                det(images)
+            rates[mode] = b * 1000.0 / call_ms(lambda: det(images), 5)
+            del det
+        best = max(rates, key=rates.get)
+        print(f"mode table {h}x{w} batch {b}: "
+              + ", ".join(f"{m} {r:.1f} img/s" for m, r in rates.items())
+              + f"; fastest {best}; select_serving_mode picks "
+              f"{select_serving_mode((h, w), quantize='full')} (full), "
+              f"{select_serving_mode((h, w), quantize='hybrid')} (hybrid) "
+              f"[{card}]")
+        del images, calib
+        torch.cuda.empty_cache()
+
+
+def int8_cli(dev: torch.device, tmp: Path) -> None:
+    """Phase 14, part 10: cli.detect_image at 416^2 on phase 13's .weights
+    file and 480x640 jpg in --mode int8, --mode stem8 and --mode auto under
+    each --quantize: rc 0, an output of the input's shape, boxes drawn,
+    one shared-candidate launch per call."""
+    import cv2
+
+    from yolov3_tensorflow_tpu_torch.cli import detect_image
+    image, weights = tmp / "frame.jpg", tmp / "spread_coco80.weights"
+    runs = (["--mode", "int8"], ["--mode", "stem8"],
+            ["--mode", "auto", "--quantize", "full"],
+            ["--mode", "auto", "--quantize", "hybrid"],
+            ["--mode", "auto", "--quantize", "none"])
+    for extra in runs:
+        out = tmp / "out_int8.jpg"
+        rc, _, boxes, k1, k2, wall = run_cli(
+            detect_image.main, [str(image), "--restore_path", str(weights),
+                                "--device", str(dev), "--new_size",
+                                str(SIZE), str(SIZE), "--output", str(out),
+                                *extra], detect_image)
+        what = " ".join(extra)
+        print(f"detect_image {what} ({SIZE}^2, calibrated on the input): rc "
+              f"{rc}, {len(boxes)} boxes drawn, nms_shared launches {k1}, "
+              f"nms launches {k2}, {wall:.2f} s wall (weights load, "
+              f"calibration and first call included)")
+        got = cv2.imread(str(out))
+        check(rc == 0 and got is not None and got.shape == CLI_SRC_HW + (3,),
+              f"detect_image {what}: rc {rc}")
+        check(len(boxes) > 0, f"detect_image {what}: no detections")
+        check((k1, k2) == (1, 0), f"detect_image {what}: launches "
+                                  f"(nms_shared, nms) {(k1, k2)}")
+
+
+def int8_phase(dev: torch.device, card: str, variables: dict,
+               anchors: np.ndarray, tmp: Path, gate_dir: Path,
+               max_err: dict) -> None:
+    """Phase 14: int8 serving (see the module docstring)."""
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    gen = torch.Generator(device=dev).manual_seed(14)
+    calib = torch.rand((CALIB_IMAGES, SIZE, SIZE, 3), generator=gen,
+                       device=dev)
+    batches = {b: torch.rand((b, SIZE, SIZE, 3), generator=gen, device=dev)
+               for b in INT8_BATCHES}
+    t0 = time.perf_counter()
+    dets = int8_detectors(dev, variables, anchors, calib)
+    print(f"int8 detectors: {len(dets)} built in "
+          f"{time.perf_counter() - t0:.1f} s (each calibrates on "
+          f"{CALIB_IMAGES} seeded images and quantizes)")
+    qp = dets["int8 packed"][0].params
+    qc = dets["int8 chained"][0].params
+    int8_gemm_check(dev, qp, qc)
+    int8_requests(dets, batches, max_err)
+    int8_gpu_vs_cpu(dev, variables, anchors, calib, batches[8][:2])
+    int8_accuracy(dev, card, gate_dir)
+    packed = build_detector(variables, anchors, C, (SIZE, SIZE), device=dev,
+                            mode="packed", **SERVING)
+    int8_timings(card, dets, packed, batches)
+    int8_split(card, dets["int8 packed"][0], batches[INT8_BATCHES[-1]])
+    del dets, packed
+    torch.cuda.empty_cache()
+    int_mm_rate(dev, card)
+    mode_table(dev, card, variables, anchors)
+    int8_cli(dev, tmp)
 
 
 def main() -> int:
@@ -1774,14 +2355,23 @@ def main() -> int:
     print(f"training: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 13. the device data path, the gate, the checkpoint CLIs ---------
-    t0 = time.perf_counter()
-    device_data_phase(dev, card, anchors, variables, host_steps)
-    print(f"device data path, overfit gate and checkpoint CLIs: "
-          f"{time.perf_counter() - t0:.1f} s wall")
-    check_no_jax()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- 13. the device data path, the gate, the checkpoint CLIs -----
+        t0 = time.perf_counter()
+        gate_dir = device_data_phase(dev, card, anchors, variables,
+                                     host_steps, tmp)
+        print(f"device data path, overfit gate and checkpoint CLIs: "
+              f"{time.perf_counter() - t0:.1f} s wall")
+        check_no_jax()
 
-    # ---- 14. records -----------------------------------------------------
+        # ---- 14. int8 serving --------------------------------------------
+        t0 = time.perf_counter()
+        int8_phase(dev, card, variables, anchors, tmp, gate_dir, max_err)
+        print(f"int8 serving: {time.perf_counter() - t0:.1f} s wall")
+        check_no_jax()
+
+    # ---- 15. records -----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

@@ -185,10 +185,7 @@ def test_checkpoint_directory_raises(weights, tmp_path):
                          "--class_name_path", NAMES])
 
 
-@pytest.mark.parametrize("mode,item", [("stem8", "item 10"),
-                                       ("int8", "item 10"),
-                                       ("auto", "item 10"),
-                                       ("split", "item 12")])
+@pytest.mark.parametrize("mode,item", [("split", "item 12")])
 def test_unported_modes_raise(mode, item, weights):
     with pytest.raises(NotImplementedError, match=item):
         port_image.main([str(ASSETS / "demo_data" / "synth_shapes_1.jpg"),

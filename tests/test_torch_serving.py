@@ -181,9 +181,16 @@ def test_build_detector_default_is_prefilter_as_in_jax(spread_vars):
 
 
 def test_build_detector_defers_other_modes(spread_vars):
+    """"split" is not ported (NotImplementedError naming its ROADMAP item);
+    full int8 is no build_detector mode (ops.quantize.build_detector_int8
+    builds it) and an unknown mode raises ValueError; "stem8" is built
+    (tests/test_torch_mode_select.py) and needs calibration images."""
     v = from_jax_variables(spread_vars, device=CPU)
-    for mode in ("split", "stem8", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="split")
+    with pytest.raises(ValueError, match="build_detector_int8"):
+        build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="int8")
     with pytest.raises(ValueError):
         build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="bogus")
+    with pytest.raises(ValueError, match="calibration_images"):
+        build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="stem8")

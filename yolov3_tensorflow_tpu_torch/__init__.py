@@ -30,7 +30,12 @@ find:
 - `models.decode`: anchor decode of the raw feature maps
 - `ops.fast_postprocess`, `ops.postprocess`: the packed serving head, the
   candidate prefilter, the exact postprocess and `build_detector` with the
-  "prefilter" (default), "packed" and "exact" modes
+  "prefilter" (default), "packed", "exact" and "stem8" modes;
+  `select_serving_mode` and `build_auto_detector`
+- `ops.quantize`, `ops.int8_conv`: int8 serving (calibration, PTQ, the
+  int8, int8-chained and stem-int8 forwards, `build_detector_int8`), with
+  the int8 convs as `torch._int_mm` over patches; `scripts.
+  validate_quantized` holds their mAP and detections to bf16's
 - `ops.preprocess`: the device letterbox of raw uint8 frames and the
   streaming detector (BGR flip, letterbox and detector in one call)
 - `cli.detect_image`, `cli.detect_video`: the image and video demos, on the

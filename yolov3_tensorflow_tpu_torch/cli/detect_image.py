@@ -21,14 +21,12 @@ from yolov3_tensorflow_tpu_torch.cli.common import (load_anchors,
                                                     load_variables,
                                                     resolve_device, str2bool)
 from yolov3_tensorflow_tpu_torch.data.augment import letterbox_resize
-from yolov3_tensorflow_tpu_torch.ops.postprocess import (build_detector,
-                                                         check_mode,
-                                                         detections_to_numpy)
+from yolov3_tensorflow_tpu_torch.ops.postprocess import (
+    build_auto_detector, build_detector, check_mode, detections_to_numpy,
+    select_serving_mode)
+from yolov3_tensorflow_tpu_torch.ops.quantize import build_detector_int8
 from yolov3_tensorflow_tpu_torch.utils.viz import (get_color_table,
                                                    plot_one_box)
-
-# where the modes that pick or build int8 detectors are ported
-INT8_ITEM = "ROADMAP queue 1, item 10 (int8 serving)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,12 +49,15 @@ def build_parser() -> argparse.ArgumentParser:
                             "stem8", "int8", "auto"],
                    help="postprocess pipeline (ops.postprocess.build_detector)"
                         ": prefilter is exact at demo thresholds; packed is "
-                        "the serving path; split, stem8, int8 and auto are "
-                        "not ported yet")
+                        "the serving path; stem8 int8-quantizes the early "
+                        "backbone, int8 the whole network (both calibrate "
+                        "on the input image); auto picks by resolution and "
+                        "--quantize; split is not ported yet")
     p.add_argument("--quantize", type=str, default="hybrid",
                    choices=["none", "hybrid", "full"],
-                   help="quantization budget for --mode auto (not ported "
-                        "yet)")
+                   help="quantization budget for --mode auto: none (bf16 "
+                        "packed), hybrid (stem8), full (int8 where "
+                        "select_serving_mode picks it)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--output", type=str, default="detection_result.jpg")
@@ -66,10 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_cli_mode(mode: str) -> None:
     """Raise before any weights load when `mode` cannot run here."""
-    if mode == "auto":
-        raise NotImplementedError(
-            f"--mode auto is not ported yet: {INT8_ITEM}")
-    check_mode(mode)
+    if mode not in ("auto", "int8"):
+        check_mode(mode)
 
 
 def preprocess(img_ori: np.ndarray, new_size, use_letterbox: bool):
@@ -117,10 +116,28 @@ def main(argv=None) -> int:
 
     variables = load_variables(args.restore_path, num_classes, device)
     img_size = (args.new_size[1], args.new_size[0])
-    detect = build_detector(
-        variables, anchors, num_classes, img_size, device=device,
-        max_out=args.max_boxes, score_thresh=args.score_thresh,
-        iou_thresh=args.nms_thresh, mode=args.mode)
+    common = dict(device=device, max_out=args.max_boxes,
+                  score_thresh=args.score_thresh, iou_thresh=args.nms_thresh)
+    # the quantized modes calibrate their activation scales on the input
+    # image itself, the right choice for a one-image demo
+    if args.mode == "auto":
+        detect = build_auto_detector(
+            variables, anchors, num_classes, img_size,
+            quantize=args.quantize, calibration_images=inp, **common)
+    elif args.mode == "int8":
+        if select_serving_mode(img_size, quantize="full") != "int8":
+            print(f"warning: full int8 was measured SLOWER than bf16 at "
+                  f"{img_size[0]}x{img_size[1]} on a TPU (the policy of "
+                  f"ops.postprocess.select_serving_mode) - consider "
+                  f"--mode auto", file=sys.stderr)
+        detect, _ = build_detector_int8(
+            variables, anchors, num_classes, img_size,
+            calibration_images=inp, mode="packed", **common)
+    else:
+        detect = build_detector(
+            variables, anchors, num_classes, img_size, mode=args.mode,
+            calibration_images=inp if args.mode == "stem8" else None,
+            **common)
 
     dets = detect(torch.from_numpy(inp))
     boxes, scores, labels = detections_to_numpy(dets, 0)

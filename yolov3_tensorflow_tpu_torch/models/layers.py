@@ -99,7 +99,14 @@ def neck_split_folded(inter: torch.Tensor, route: torch.Tensor, p_lat: Params,
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample of an NCHW tensor; keeps channels_last."""
+    """Nearest-neighbour 2x upsample of an NCHW tensor; keeps channels_last.
+
+    int8 (the int8-chained forward's activations), which F.interpolate
+    does not take, goes through as its uint8 view: a nearest upsample only
+    copies, so every value is the input's bit for bit (the JAX package
+    broadcasts and reshapes)."""
+    if x.dtype == torch.int8:
+        return upsample_nearest_2x(x.view(torch.uint8)).view(torch.int8)
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 

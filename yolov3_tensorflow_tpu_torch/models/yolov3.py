@@ -197,33 +197,59 @@ def init_yolov3(generator: torch.Generator, num_classes: int = 80, *,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _backbone_forward(conv_fn, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def _backbone_forward(conv_fn, x: torch.Tensor, *,
+                      fused_residual: bool = False
+                      ) -> Tuple[torch.Tensor, ...]:
     """Walk BACKBONE_PLAN; `conv_fn(idx, x, stride)` applies conv idx.
-    Returns the 3 routes (strides 8, 16, 32)."""
+    Returns the 3 routes (strides 8, 16, 32).
+
+    fused_residual=True passes the pending shortcut to the last conv of
+    each residual block as `conv_fn(idx, x, stride, shortcut)` and skips
+    the `x + shortcut` here: for forwards that add it in the conv's
+    epilogue (the int8-chained forward adds it in the dequantized domain,
+    before requantizing)."""
     routes: List[torch.Tensor] = []
     shortcut = None
     idx = 0
-    for op in BACKBONE_PLAN:
+    for i, op in enumerate(BACKBONE_PLAN):
         kind = op[0]
         if kind == "conv":
-            x = conv_fn(idx, x, op[3])
+            closes_res = (fused_residual and i + 1 < len(BACKBONE_PLAN)
+                          and BACKBONE_PLAN[i + 1][0] == "res_end")
+            if closes_res:
+                x = conv_fn(idx, x, op[3], shortcut)
+                shortcut = None
+            else:
+                x = conv_fn(idx, x, op[3])
             idx += 1
         elif kind == "res_begin":
             shortcut = x
         elif kind == "res_end":
-            x = x + shortcut
+            if not fused_residual:
+                x = x + shortcut
         elif kind == "route":
             routes.append(x)
     return tuple(routes)
 
 
-def _head_forward(conv_fn, out_fn, routes: Sequence[torch.Tensor], neck_fn
+def _head_forward(conv_fn, out_fn, routes: Sequence[torch.Tensor],
+                  neck_fn=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """FPN neck + 3 heads. `conv_fn(idx, x)` is a BN conv (folded or live),
-    `out_fn(idx, x)` a detection conv, and `neck_fn(lat_idx, first_idx,
-    inter, route)` returns the output of head conv `first_idx` at each
-    junction (see layers.neck_split_folded and neck_split_bn_leaky)."""
+    """FPN neck + 3 heads. `conv_fn(idx, x)` is a BN conv (folded, live or
+    int8), `out_fn(idx, x)` a detection conv. `neck_fn(lat_idx, first_idx,
+    inter, route)`, when given, returns the output of head conv
+    `first_idx` at each junction (see layers.neck_split_folded and
+    neck_split_bn_leaky); without it the junction is the literal lateral
+    conv, upsample, concat and first conv, whose concat tensor the int8
+    calibration observes."""
     route_1, route_2, route_3 = routes
+
+    def junction(lat_idx, first_idx, inter, route):
+        if neck_fn is not None:
+            return neck_fn(lat_idx, first_idx, inter, route)
+        x = upsample_nearest_2x(conv_fn(lat_idx, inter))
+        x = torch.cat([x, route.to(x.dtype)], dim=1)
+        return conv_fn(first_idx, x)
 
     x = route_3
     for i in range(5):
@@ -232,14 +258,14 @@ def _head_forward(conv_fn, out_fn, routes: Sequence[torch.Tensor], neck_fn
     x = conv_fn(5, x)
     fmap_1 = out_fn(6, x)                       # stride 32
 
-    x = neck_fn(7, 8, inter1, route_2)
+    x = junction(7, 8, inter1, route_2)
     for i in range(9, 13):
         x = conv_fn(i, x)
     inter2 = x
     x = conv_fn(13, x)
     fmap_2 = out_fn(14, x)                      # stride 16
 
-    x = neck_fn(15, 16, inter2, route_1)
+    x = junction(15, 16, inter2, route_1)
     for i in range(17, 21):
         x = conv_fn(i, x)
     x = conv_fn(21, x)
@@ -278,10 +304,6 @@ def yolov3_forward(variables: Dict[str, Params], images: torch.Tensor, *,
 
     def neck_fn(lat_idx, first_idx, inter, route):
         lat, first = f"conv_{lat_idx}", f"conv_{first_idx}"
-        if not split_neck:
-            x = upsample_nearest_2x(bn_conv("head", lat_idx, inter))
-            x = torch.cat([x, route.to(x.dtype)], dim=1)
-            return bn_conv("head", first_idx, x)
         head, head_stats = params["head"], stats["head"]
         out, new_stats["head"][lat], new_stats["head"][first] = \
             neck_split_bn_leaky(inter, route, head[lat], head_stats[lat],
@@ -294,7 +316,7 @@ def yolov3_forward(variables: Dict[str, Params], images: torch.Tensor, *,
         lambda i, x: bn_conv("head", i, x),
         lambda i, x: conv_bias(x, params["head"][f"conv_{i}"],
                                compute_dtype=compute_dtype),
-        routes, neck_fn)
+        routes, neck_fn if split_neck else None)
     return tuple(f.permute(0, 2, 3, 1) for f in fmaps), new_stats
 
 
@@ -304,6 +326,9 @@ def fold_batch_norm(variables: Dict[str, Params],
 
     w' = w * gamma / sqrt(var + eps);  b' = beta - mean * gamma / sqrt(var+eps)
     Detection convs keep (w, b), with w cast to `dtype` and b in fp32.
+    The fp32 square root is taken in float64 and rounded once, which gives
+    the correctly rounded value, as JAX's: PyTorch's vectorized fp32
+    `sqrt` on the CPU is off by an ulp on some inputs.
     """
     eps = 1e-5
     params, stats = variables["params"], variables["batch_stats"]
@@ -313,7 +338,8 @@ def fold_batch_norm(variables: Dict[str, Params],
         for name, p in params[scope].items():
             if "gamma" in p:
                 s = stats[scope][name]
-                scale = p["gamma"] / torch.sqrt(s["var"] + eps)
+                scale = p["gamma"] / torch.sqrt((s["var"] + eps).double()
+                                                ).float()
                 folded[scope][name] = {
                     "w": (p["w"] * scale.view(-1, 1, 1, 1)).to(dtype),
                     "b": (p["beta"] - s["mean"] * scale).float(),
@@ -322,6 +348,19 @@ def fold_batch_norm(variables: Dict[str, Params],
                 folded[scope][name] = {"w": p["w"].to(dtype),
                                        "b": p["b"].float()}
     return folded
+
+
+def channels_last_weights(tree: Params) -> Params:
+    """Store every 4-D conv kernel of a folded (or quantized) tree, packed
+    detection convs included, in channels_last memory, the layout cuDNN
+    runs fastest with channels_last activations. In place; returns the
+    tree."""
+    for convs in tree.values():
+        for p in convs.values():
+            p = p.get("packed", p)
+            if "w" in p:
+                p["w"] = p["w"].contiguous(memory_format=torch.channels_last)
+    return tree
 
 
 def folded_body(folded: Params, images: torch.Tensor, out_fn, *,

@@ -6,7 +6,8 @@ folds BN into the conv kernels once, moves the weights and decode tables to
 the device, and returns an `nn.Module` whose forward runs the whole chain
 on the device: the BN-folded Darknet-53 + FPN, then one of three
 postprocesses (see `build_detector`), each ending in a CUDA NMS kernel on
-the GPU.
+the GPU. `select_serving_mode` and `build_auto_detector` pick a mode,
+bf16 or int8 (ops.quantize), from a resolution and a quantization budget.
 """
 
 from __future__ import annotations
@@ -18,19 +19,21 @@ import torch
 from torch import nn
 
 from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
-from yolov3_tensorflow_tpu_torch.models.yolov3 import (fold_batch_norm,
+from yolov3_tensorflow_tpu_torch.models.yolov3 import (channels_last_weights,
+                                                       fold_batch_norm,
                                                        yolov3_forward_folded)
 from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
     decode_tables, pack_serving_head, postprocess_packed,
     postprocess_prefilter, yolov3_forward_packed)
 from yolov3_tensorflow_tpu_torch.ops.nms import batched_nms_auto
+from yolov3_tensorflow_tpu_torch.ops.quantize import (
+    QuantizedDetector, build_detector_int8, build_stem_int8_packed,
+    calibrate_activation_scales, yolov3_forward_stem_int8_packed)
 
 # build_detector modes of the JAX package that this package does not have
 # yet, with the ROADMAP item that ports each.
 _DEFERRED_MODES = {
     "split": "ROADMAP queue 1, item 12 (split head, TPU layout experiment)",
-    "stem8": "ROADMAP queue 1, item 10 (int8 serving)",
-    "int8": "ROADMAP queue 1, item 10 (int8 serving)",
 }
 
 
@@ -135,12 +138,17 @@ class FoldedDetector(nn.Module):
 def check_mode(mode: str) -> None:
     """Raise unless `build_detector` can build `mode`: NotImplementedError
     naming the ROADMAP item for a JAX mode not ported yet, ValueError for
-    an unknown one. The CLIs call it before they load any weights."""
-    if mode in ("packed", "exact", "prefilter"):
+    an unknown one (int8 detectors come from ops.quantize.
+    build_detector_int8 or build_auto_detector). The CLIs call it before
+    they load any weights."""
+    if mode in ("packed", "exact", "prefilter", "stem8"):
         return
     where = _DEFERRED_MODES.get(mode)
     if where is None:
-        raise ValueError(f"unknown detector mode {mode!r}")
+        hint = (": full int8 detectors come from ops.quantize."
+                "build_detector_int8 or build_auto_detector"
+                if mode == "int8" else "")
+        raise ValueError(f"unknown detector mode {mode!r}{hint}")
     raise NotImplementedError(f"mode={mode!r} is not ported yet: {where}")
 
 
@@ -149,7 +157,9 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                    max_out: int = 200, pre_topk: int = 256,
                    score_thresh: float = 0.3, iou_thresh: float = 0.45,
                    compute_dtype: torch.dtype = torch.bfloat16,
-                   box_topk: int = 256, mode: str = "prefilter") -> nn.Module:
+                   box_topk: int = 256, mode: str = "prefilter",
+                   calibration_images=None,
+                   stem_int8_upto: int = 12) -> nn.Module:
     """Build the end-to-end detector on `device`.
 
     variables: this package's tree (see models.convert.from_jax_variables,
@@ -172,23 +182,38 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                   thresholds: decode of every anchor, each class's
                   pre_topk best, and the per-group NMS kernel. Rows are
                   score-descending within each class group.
+      "stem8"     "packed" with the early backbone
+                  (conv_0..conv_{stem_int8_upto-1}) int8-chained
+                  (ops.quantize); needs `calibration_images` (a few
+                  representative images, NHWC in [0, 1]) for the
+                  activation scales. Runs in bf16 whatever compute_dtype
+                  says, as in the JAX package.
 
-    The JAX package's "split", "stem8" and "int8" modes raise
-    NotImplementedError naming the ROADMAP item that ports them.
+    The JAX package's "split" mode raises NotImplementedError naming the
+    ROADMAP item that ports it; full int8 detectors come from
+    ops.quantize.build_detector_int8 (or build_auto_detector).
     """
     check_mode(mode)
     variables = {part: {scope: {name: {k: v.to(device) for k, v in p.items()}
                                 for name, p in tree.items()}
                         for scope, tree in variables[part].items()}
                  for part in ("params", "batch_stats")}
-    folded = fold_batch_norm(variables, dtype=compute_dtype)
     tables = decode_tables(img_size, anchors, device=device)
+    if mode == "stem8":
+        if calibration_images is None:
+            raise ValueError("mode='stem8' needs calibration_images")
+        scales = calibrate_activation_scales(variables, calibration_images)
+        hp = build_stem_int8_packed(variables, scales, num_classes,
+                                    upto=stem_int8_upto)
+        return QuantizedDetector(
+            yolov3_forward_stem_int8_packed, hp, tables, anchors,
+            num_classes, img_size, post="packed", max_out=max_out,
+            box_topk=box_topk, score_thresh=score_thresh,
+            iou_thresh=iou_thresh).eval()
+    folded = fold_batch_norm(variables, dtype=compute_dtype)
     if mode == "packed":
         folded = pack_serving_head(folded, num_classes)
-    for tree in folded.values():
-        for p in tree.values():
-            p = p.get("packed", p)
-            p["w"] = p["w"].contiguous(memory_format=torch.channels_last)
+    channels_last_weights(folded)
     if mode == "packed":
         return PackedDetector(folded, tables, num_classes, img_size,
                               max_out=max_out, box_topk=box_topk,
@@ -200,6 +225,67 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                           box_topk=box_topk, score_thresh=score_thresh,
                           iou_thresh=iou_thresh,
                           compute_dtype=compute_dtype).eval()
+
+
+# --------------------------------------------------------------------------
+# Resolution-aware serving-mode selection
+# --------------------------------------------------------------------------
+# The JAX package's policy, unchanged. Its boundary is a TPU measurement:
+# on a TPU v5e full int8 won at 416^2 and 608^2 and lost to bf16 at
+# 896x1344 (yolov3_tensorflow_tpu/ops/postprocess.py, docs/BENCHMARKS.md),
+# so full int8 is picked up to 700*700 pixels. The H100's own table of
+# these modes at those sizes is in PERF.md (chip_smoke.py phase 14);
+# re-deriving the policy from it is queued work (ROADMAP).
+_INT8_MAX_AREA = 700 * 700
+
+
+def select_serving_mode(img_size: Tuple[int, int], *,
+                        quantize: str = "hybrid") -> str:
+    """Pick the serving mode for an inference resolution.
+
+    quantize declares how much numeric approximation the caller accepts:
+      "none"    bf16 arithmetic only             -> "packed"
+      "hybrid"  the stem-int8 hybrid             -> "stem8" at every size
+      "full"    full int8 PTQ                    -> "int8" up to
+                _INT8_MAX_AREA pixels, "stem8" beyond it
+
+    Returns one of "packed" / "stem8" / "int8". Callers route "int8" to
+    ops.quantize.build_detector_int8 and the rest to build_detector, or
+    call build_auto_detector, which does both.
+    """
+    if quantize not in ("none", "hybrid", "full"):
+        raise ValueError(f"quantize must be none|hybrid|full, got {quantize}")
+    if quantize == "none":
+        return "packed"
+    if quantize == "full" and img_size[0] * img_size[1] <= _INT8_MAX_AREA:
+        return "int8"
+    return "stem8"
+
+
+def build_auto_detector(variables, anchors: np.ndarray, num_classes: int,
+                        img_size: Tuple[int, int], *,
+                        quantize: str = "hybrid",
+                        calibration_images=None,
+                        **kwargs) -> nn.Module:
+    """build_detector with the serving mode picked per resolution
+    (`select_serving_mode`). stem8 and int8 need `calibration_images`;
+    without them the selection falls back to the bf16 "packed" path.
+    kwargs go to build_detector (`device` among them), or to
+    build_detector_int8 for the ones it takes."""
+    if calibration_images is None:
+        quantize = "none"
+    mode = select_serving_mode(img_size, quantize=quantize)
+    if mode == "int8":
+        accepted = ("device", "max_out", "score_thresh", "iou_thresh",
+                    "box_topk")
+        detect, _ = build_detector_int8(
+            variables, anchors, num_classes, img_size, mode="packed",
+            calibration_images=calibration_images,
+            **{k: v for k, v in kwargs.items() if k in accepted})
+        return detect
+    return build_detector(variables, anchors, num_classes, img_size,
+                          mode=mode, calibration_images=calibration_images,
+                          **kwargs)
 
 
 def detections_to_numpy(dets: Dict[str, torch.Tensor], batch_index: int = 0
