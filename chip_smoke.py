@@ -156,7 +156,8 @@ Phases, in order; any failure exits non-zero before the last line:
    detector answers a request at batch 8 and at 128: finite outputs of
    the right shape, detections in every image, one shared-candidate
    launch and its int8 GEMMs per request (72 full int8, 74 chained, 12 and
-   9 stem8, 0 / 12 / 72 auto none / hybrid / full; no silent float path),
+   9 stem8, 0 under every auto budget, which serves bf16 packed on CUDA
+   (phase 15); no silent float path),
    and the kernel bit-equal to its plain version on the last request's
    candidates. The int8 packed, prefilter and chained detectors on the GPU
    and on the CPU (plain NMS), both quantized with the GPU's activation
@@ -180,7 +181,33 @@ Phases, in order; any failure exits non-zero before the last line:
    --mode int8, --mode stem8 and --mode auto --quantize full / hybrid /
    none on phase 13's 480x640 jpg: rc 0, boxes drawn, one shared-candidate
    launch per call.
-15. prints the kernel record and the device record as JSON; the last line
+15. the serving policy on CUDA: select_serving_mode on the card picks bf16
+   packed under every budget at the mode table's sizes (the H100 table:
+   no int8 mode beat bf16 there), and cli.detect_image --mode int8 at
+   416^2 warns that full int8 is slower there, naming that table.
+16. data parallelism, at COCO-80, 416x416. (1) World size 1 over NCCL in
+   this process: make_dp_train_step bit-equal to make_train_step over 3
+   momentum steps at batch 8 in bf16 and fp32 (params, BN statistics,
+   optimizer slots, metrics; deterministic algorithms on), make_dp_eval_
+   forward bit-equal to the eval step's detections with one per-group
+   launch, that kernel bit-equal to its plain version on the eval's
+   candidates; the bf16 step plain and DP in turns. (2) Two ranks on the
+   one card over gloo, spawned processes: one fp32 DP step at global batch
+   16 against the single-device step on the same 16 images, as
+   tests/test_torch_train_model.py holds a step, or within twice the GPU's
+   own reordering noise (the step on the batch reversed, the DP step with
+   the batch re-partitioned), both ranks' parameters bit-equal;
+   make_sharded_detector in packed and stem8 at batch 128 (64 a rank):
+   each rank's rows bit-equal to build_detector on them, one
+   shared-candidate launch a rank a request, that kernel bit-equal to its
+   plain version on each rank's candidates, the gathered batch >= 99%
+   identical (counts printed) to the whole batch on one device both ways;
+   the two-rank step's time, a same-card functional run. (3) cli.train
+   --num_processes 2 on the card (gloo) on 64 + 8 synthetic images, one
+   epoch and validation: rc 0 and the same mAP line on both ranks, one
+   per-group launch per validation batch a rank, one best_model_
+   checkpoint, logs and events from rank 0 only.
+17. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -251,6 +278,12 @@ INT8_PEAK_TOPS = 1979.0                # H100 SXM dense int8 (data sheet)
 INT_MM_SIZE = 8192                     # the square _int_mm of the rate
 # the H100 mode table at the JAX package's benched sizes: (h, w), batch
 MODE_TABLE = (((416, 416), 128), ((608, 608), 80), ((896, 1344), 16))
+DP_BATCH = 8                           # the world-size-1 DP steps' batch
+DP_STEPS = 3                           # and steps, held bit-equal
+DP2_BATCH = 16                         # the two-rank step's global batch
+DP2_TIMED = 3                          # two-rank steps timed
+SHARD_BATCH = 128                      # sharded serving, 64 a rank
+DP_TRAIN_IMAGES = 64                   # cli.train --num_processes 2
 
 
 def fail(msg: str) -> None:
@@ -1512,7 +1545,8 @@ def int8_detectors(dev: torch.device, variables: dict, anchors: np.ndarray,
         dets[f"stem8 upto {upto}"] = (build_detector(
             variables, anchors, C, (SIZE, SIZE), mode="stem8",
             calibration_images=calib, stem_int8_upto=upto, **kw), upto)
-    for quantize, gemms in (("none", 0), ("hybrid", 12), ("full", 72)):
+    # on CUDA every budget serves bf16 packed (the H100 mode table, phase 15)
+    for quantize, gemms in (("none", 0), ("hybrid", 0), ("full", 0)):
         dets[f"auto {quantize}"] = (build_auto_detector(
             variables, anchors, C, (SIZE, SIZE), quantize=quantize,
             calibration_images=calib, **kw), gemms)
@@ -1910,10 +1944,11 @@ def mode_table(dev: torch.device, card: str, variables: dict,
         best = max(rates, key=rates.get)
         print(f"mode table {h}x{w} batch {b}: "
               + ", ".join(f"{m} {r:.1f} img/s" for m, r in rates.items())
-              + f"; fastest {best}; select_serving_mode picks "
-              f"{select_serving_mode((h, w), quantize='full')} (full), "
-              f"{select_serving_mode((h, w), quantize='hybrid')} (hybrid) "
-              f"[{card}]")
+              + f"; fastest {best}; select_serving_mode on {dev} picks "
+              f"{select_serving_mode((h, w), quantize='full', device=dev)} "
+              f"(full), "
+              f"{select_serving_mode((h, w), quantize='hybrid', device=dev)}"
+              f" (hybrid) [{card}]")
         del images, calib
         torch.cuda.empty_cache()
 
@@ -1981,6 +2016,570 @@ def int8_phase(dev: torch.device, card: str, variables: dict,
     int_mm_rate(dev, card)
     mode_table(dev, card, variables, anchors)
     int8_cli(dev, tmp)
+
+
+def policy_phase(dev: torch.device, card: str, tmp: Path) -> None:
+    """Phase 15: the serving policy on CUDA. select_serving_mode on the card
+    follows the H100's measured table: packed under every budget at the
+    mode table's sizes (no int8 mode beat bf16 there, phase 14), and
+    cli.detect_image --mode int8 at 416^2 on phase 13's .weights file and
+    jpg warns that full int8 is slower here, naming that table."""
+    import contextlib
+    import io
+
+    from yolov3_tensorflow_tpu_torch.cli import detect_image
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import (
+        SERVING_TABLES, select_serving_mode)
+    for (h, w), _ in MODE_TABLE:
+        picks = {q: select_serving_mode((h, w), quantize=q, device=dev)
+                 for q in ("none", "hybrid", "full")}
+        print(f"serving policy on {dev} at {h}x{w}: {picks}")
+        check(set(picks.values()) == {"packed"},
+              f"serving policy on CUDA at {h}x{w}: {picks}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, _, boxes, k1, _, _ = run_cli(
+            detect_image.main,
+            [str(tmp / "frame.jpg"), "--restore_path",
+             str(tmp / "spread_coco80.weights"), "--device", str(dev),
+             "--new_size", str(SIZE), str(SIZE), "--output",
+             str(tmp / "out_policy.jpg"), "--mode", "int8"], detect_image)
+    warning = [line for line in err.getvalue().splitlines()
+               if "SLOWER" in line]
+    print(f"detect_image --mode int8 at {SIZE}^2: rc {rc}, {len(boxes)} "
+          f"boxes, nms_shared launches {k1}; warning: {warning}")
+    check(rc == 0 and k1 == 1, f"detect_image --mode int8: rc {rc}, "
+                               f"nms_shared launches {k1}")
+    check(len(warning) == 1 and SERVING_TABLES["cuda"] in warning[0],
+          f"detect_image --mode int8 at {SIZE}^2 gave no warning naming "
+          f"the H100 table: {err.getvalue()!r}")
+
+
+def dp_batch(b: int, seed: int, anchors: np.ndarray):
+    """b seeded 416^2 images and their label grids (4 boxes each, labels
+    0..2 under the COCO-80 head), CPU tensors."""
+    from yolov3_tensorflow_tpu_torch.data.encoder import encode_labels
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 1, (b, SIZE, SIZE, 3)).astype(np.float32)
+    grids = []
+    for _ in range(b):
+        xy = rng.uniform(0, 0.6 * SIZE, (4, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(0.04 * SIZE,
+                                                     0.3 * SIZE, (4, 2))], 1)
+        grids.append(encode_labels(boxes.astype(np.float32),
+                                   rng.integers(0, 3, 4), (SIZE, SIZE), C,
+                                   anchors))
+    return (torch.from_numpy(images),
+            [torch.from_numpy(np.stack([g[s] for g in grids]))
+             for s in range(3)])
+
+
+def run_digest(state: dict, metrics: list) -> str:
+    """tree_digest of a train run's params, statistics, optimizer slots
+    and every step's metrics (the learning rate as a tensor)."""
+    from yolov3_tensorflow_tpu_torch.testing import tree_digest
+    steps = {f"{i}": {k: torch.as_tensor(v) for k, v in m.items()}
+             for i, m in enumerate(metrics)}
+    slots = {k: v for k, v in state["opt_state"].items() if k != "count"}
+    return tree_digest(state["params"], state["batch_stats"], slots, steps)
+
+
+def dp_world1(dev: torch.device, card: str, tmp: Path,
+              anchors: np.ndarray, max_err: dict) -> None:
+    """Phase 16, part 1: data parallelism at world size 1 over NCCL in this
+    process. make_dp_train_step against make_train_step for DP_STEPS steps
+    at batch 8 in bf16 and in fp32 (momentum, seed-0 init, deterministic
+    algorithms): params, BN statistics, optimizer slots and every step's
+    metrics bit-equal (the plain step run twice shows it is itself
+    repeatable); make_dp_eval_forward against the eval step's detections,
+    bit-equal, with one per-group kernel launch, and that kernel bit-equal
+    to its plain version on the eval's candidates. Then the bf16 step at
+    batch 8, plain and DP in turns: the collectives' cost."""
+    import torch.distributed as dist
+
+    from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.nms import select_per_class
+    from yolov3_tensorflow_tpu_torch.parallel.data_parallel import (
+        make_dp_eval_forward, make_dp_train_step)
+    from yolov3_tensorflow_tpu_torch.parallel.mesh import make_data_mesh
+    from yolov3_tensorflow_tpu_torch.parallel.multihost import \
+        initialize_distributed
+    from yolov3_tensorflow_tpu_torch.train.optimizers import flatten
+    from yolov3_tensorflow_tpu_torch.train.schedules import build_schedule
+    from yolov3_tensorflow_tpu_torch.train.trainer import (make_eval_forward,
+                                                           make_eval_step)
+    got = initialize_distributed(f"file://{tmp / 'nccl_rendezvous'}", 1, 0,
+                                 device=torch.device(dev.type))
+    try:
+        check(dist.get_backend() == "nccl" and got == dev,
+              f"world size 1: backend {dist.get_backend()} on {got}")
+        mesh = make_data_mesh(1)
+        cpu_images, cpu_y = dp_batch(DP_BATCH, 16, anchors)
+        images = cpu_images.to(dev)
+        y_true = tuple(y.to(dev) for y in cpu_y)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for dtype in ("bfloat16", "float32"):
+                cfg = train_config(dtype, "momentum")
+                plain, opt = train_step_fn(cfg)
+                dp = make_dp_train_step(cfg, opt, mesh,
+                                        schedule=build_schedule(cfg))
+                digests = {}
+                for name, fn in (("plain", plain), ("dp", dp),
+                                 ("plain again", plain)):
+                    state, metrics = fresh_state(opt, dev), []
+                    for _ in range(DP_STEPS):
+                        state, m = fn(state, images, y_true)
+                        metrics.append(m)
+                    torch.cuda.synchronize()
+                    digests[name] = run_digest(state, metrics)
+                print(f"DP world size 1 (NCCL) {dtype}, {DP_STEPS} momentum "
+                      f"steps at batch {DP_BATCH}, {SIZE}^2: DP == plain "
+                      f"{digests['dp'] == digests['plain']}, plain repeats "
+                      f"{digests['plain again'] == digests['plain']}; last "
+                      f"total loss {float(metrics[-1]['total']):.4f}")
+                check(digests["dp"] == digests["plain"],
+                      f"DP at world size 1 ({dtype}) differs from the plain "
+                      f"step (the plain step repeats: "
+                      f"{digests['plain again'] == digests['plain']})")
+            _, want = make_eval_step(cfg)(state, images, y_true)
+            torch.cuda.synchronize()
+            nms_cuda.nms_keep_mask.launches = 0
+            dets = make_dp_eval_forward(cfg, mesh)(state, images)
+            torch.cuda.synchronize()
+            k2 = nms_cuda.nms_keep_mask.launches
+            same = all(torch.equal(dets[k], want[k]) for k in want)
+            print(f"make_dp_eval_forward (fp32, eval config, batch "
+                  f"{DP_BATCH}): detections == eval step's {same}, "
+                  f"{int(dets['valid'].sum())} valid; nms launches {k2}")
+            check(same and k2 == 1, f"make_dp_eval_forward: equal {same}, "
+                                    f"nms launches {k2}")
+            with torch.no_grad():
+                fmaps, _ = make_eval_forward(cfg)(state, images)
+                boxes, confs, probs = predict_boxes(fmaps, anchors, C,
+                                                    (SIZE, SIZE))
+                _, top_boxes, valid = select_per_class(
+                    boxes, confs * probs, cfg.eval.pre_nms_topk,
+                    cfg.eval.score_threshold)
+            b, _, k = valid.shape
+            max_err["nms"] = max(max_err["nms"], keep_mask_error(
+                top_boxes.reshape(b * C, k, 4), valid.reshape(b * C, k),
+                cfg.eval.nms_threshold, "DP eval candidates"))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+
+        cfg = train_config("bfloat16", "momentum")
+        plain, opt = train_step_fn(cfg)
+        dp = make_dp_train_step(cfg, opt, mesh, schedule=build_schedule(cfg))
+        state = fresh_state(opt, dev)
+        steps = {"plain": lambda: plain(state, images, y_true),
+                 "dp": lambda: dp(state, images, y_true)}
+        for fn in steps.values():
+            for _ in range(2):
+                fn()
+        ms = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            ms[name].append(call_ms(steps[name], 5))
+        p_ms, d_ms = (sum(ms[n]) / 2 for n in ("plain", "dp"))
+        print(f"bf16 train step batch {DP_BATCH} at {SIZE}^2, in turns: "
+              f"plain {p_ms:.3f} ms (runs {ms['plain'][0]:.3f}, "
+              f"{ms['plain'][1]:.3f}), DP at world size 1 over NCCL "
+              f"{d_ms:.3f} ms (runs {ms['dp'][0]:.3f}, {ms['dp'][1]:.3f}): "
+              f"the collectives (72 batch-norm all-reduces forward and "
+              f"backward, one gradient and one metric all-reduce) "
+              f"{d_ms - p_ms:+.3f} ms a step [{card}]")
+        # the collectives alone: a batch-norm sized one and the gradient's
+        small = torch.zeros((2, 512), device=dev)
+        flat = torch.zeros(sum(t.numel() for t in
+                               flatten(state["params"]).values()),
+                           device=dev)
+        for t in (small, flat):
+            dist.all_reduce(t)
+        small_ms = call_ms(lambda: dist.all_reduce(small), 146)
+        t0 = time.perf_counter()
+        for _ in range(146):
+            dist.all_reduce(small)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 146
+        torch.cuda.synchronize()
+        flat_ms = call_ms(lambda: dist.all_reduce(flat), 5)
+        print(f"NCCL at world size 1: an all-reduce of [2, 512] fp32 takes "
+              f"{small_ms:.4f} ms back to back ({host_ms:.4f} ms of host "
+              f"time to enqueue), 146 of them {146 * small_ms:.3f} ms; the "
+              f"gradient's {flat.numel()} fp32 {flat_ms:.3f} ms [{card}]")
+        del flat
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank(rank: int, world: int, directory: str) -> None:
+    """Phase 16, part 2: one rank of the two-rank run on the one card over
+    gloo (a spawned process; see dp_two_ranks). Writes rank{rank}.pt."""
+    import torch.distributed as dist
+
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.parallel.data_parallel import \
+        make_dp_train_step
+    from yolov3_tensorflow_tpu_torch.parallel.mesh import (make_data_mesh,
+                                                           replicate,
+                                                           shard_batch)
+    from yolov3_tensorflow_tpu_torch.parallel.multihost import \
+        initialize_distributed
+    from yolov3_tensorflow_tpu_torch.parallel.serving import \
+        make_sharded_detector
+    from yolov3_tensorflow_tpu_torch.testing import tree_digest
+    from yolov3_tensorflow_tpu_torch.train.optimizers import build_optimizer
+    from yolov3_tensorflow_tpu_torch.train.schedules import build_schedule
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = Path(directory)
+    inp = torch.load(d / "inputs.pt", weights_only=True)
+    dev = initialize_distributed(f"file://{d / 'rendezvous'}", world, rank,
+                                 device=torch.device(inp["device"]))
+    cpu = torch.device("cpu")
+    out = {"device": str(dev), "backend": dist.get_backend()}
+    try:
+        mesh = make_data_mesh(world)
+        cfg = train_config("float32", "momentum")
+        sched = build_schedule(cfg)
+        opt = build_optimizer(cfg.train.optimizer, sched)
+        step = make_dp_train_step(cfg, opt, mesh, schedule=sched)
+        v = to_device(inp["train_variables"], dev)
+
+        def args(order):
+            state = replicate(mesh, {"params": v["params"],
+                                     "batch_stats": v["batch_stats"],
+                                     "opt_state": opt.init(v["params"]),
+                                     "step": 0})
+            return (state, shard_batch(mesh, inp["images"][order]).to(dev),
+                    tuple(shard_batch(mesh, y[order]).to(dev)
+                          for y in inp["y_true"]))
+
+        for name, order in inp["orders"].items():
+            new, metrics = step(*args(torch.as_tensor(order)))
+            torch.cuda.synchronize()
+            out[name] = {"digest": tree_digest(new["params"],
+                                               new["batch_stats"])}
+            if rank == 0:
+                out[name].update(
+                    params=to_device(new["params"], cpu),
+                    batch_stats=to_device(new["batch_stats"], cpu),
+                    metrics={k: m.cpu() for k, m in metrics.items()
+                             if k != "lr"})
+        a = args(torch.as_tensor(inp["orders"]["batch"]))
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(DP2_TIMED):
+            step(*a)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / DP2_TIMED
+        del a, new, v
+        torch.cuda.empty_cache()
+
+        spread = to_device(inp["serve_variables"], dev)
+        anchors = inp["anchors"].numpy()
+        images = inp["serve_images"].to(dev)
+        calib = inp["calib"].to(dev)
+        rows = shard_batch(mesh, images)
+        per = rows.shape[0]
+        for mode in ("packed", "stem8"):
+            det = make_sharded_detector(spread, anchors, C,
+                                        (SIZE, SIZE), mesh, device=dev,
+                                        mode=mode, calibration_images=calib,
+                                        **SERVING)
+            torch.cuda.synchronize()
+            nms_cuda.nms_keep_mask_shared.launches = 0
+            whole = det(images)
+            torch.cuda.synchronize()
+            k1 = nms_cuda.nms_keep_mask_shared.launches
+            alone = build_detector(
+                spread, anchors, C, (SIZE, SIZE), device=dev,
+                mode=mode, calibration_images=calib if mode == "stem8"
+                else None, **SERVING)
+            mine = alone(rows)
+            equal = all(torch.equal(whole[k][rank * per:(rank + 1) * per],
+                                    mine[k]) for k in whole)
+            boxes, scores = int8_candidates(alone, rows)
+            st, it = SERVING["score_thresh"], SERVING["iou_thresh"]
+            keep = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+            plain = nms_cuda.nms_keep_mask_shared_reference(boxes, scores,
+                                                            st, it)
+            out[mode] = {
+                "whole": {k: t.cpu() for k, t in whole.items()},
+                "k1": k1, "slice_equal": equal,
+                "k1_err": float((keep.float() - plain.float()).abs().max())}
+            del det, alone
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, d / f"rank{rank}.pt")
+
+
+def dp_two_ranks(dev: torch.device, card: str, tmp: Path,
+                 anchors: np.ndarray, variables: dict, max_err: dict) -> None:
+    """Phase 16, part 2: two ranks on the one card over gloo (NCCL refuses
+    two ranks on one GPU), spawned processes. This process first computes
+    the references on the card: the fp32 train step on the DP2_BATCH
+    images and on them reversed (the GPU's own reordering noise), and the
+    packed and stem8 detectors on the whole SHARD_BATCH batch. The ranks
+    then run one DP step at global batch DP2_BATCH (fp32, momentum, seed-0
+    init), and again with the batch re-partitioned over the ranks; then
+    make_sharded_detector in packed and stem8 (stem8 calibrated on rank 0
+    and broadcast) on the whole batch, SHARD_BATCH / 2 rows a rank. Checks:
+    the DP step against the single-device step as
+    tests/test_torch_train_model.py holds a step (loss terms and BN
+    statistics within 1e-4 of their largest, detection-conv updates within
+    1e-4, every leaf's and all updates in norm) or within twice the GPU's
+    own noise (the larger of the reversed single-device step's and the
+    re-partitioned DP step's), whichever is larger; both ranks' new
+    parameters and statistics bit-equal; each rank's rows of the gathered
+    detections bit-equal to build_detector on them, the gathered batch the
+    same on both ranks, one shared-candidate launch a rank a request, that
+    kernel bit-equal to its plain version on each rank's candidates, and
+    at least 99% of the whole batch's detections found in the gathered
+    ones both ways (same label, IoU >= 0.9; the counts printed). The
+    two-rank step's time is a same-card functional run, not a scaling
+    number."""
+    import multiprocessing
+
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import (DETECTION_CONVS,
+                                                           init_yolov3)
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.testing import match_detections
+    from yolov3_tensorflow_tpu_torch.train.optimizers import flatten
+    cpu = torch.device("cpu")
+    d = tmp / "dp2"
+    d.mkdir()
+    images, y_true = dp_batch(DP2_BATCH, 17, anchors)
+    n = DP2_BATCH
+    orders = {"batch": list(range(n)),
+              # rows {0, 2, ...} on rank 0, {1, 3, ...} on rank 1
+              "repartitioned": list(range(0, n, 2)) + list(range(1, n, 2))}
+    train_vars = init_yolov3(torch.Generator().manual_seed(0), C, device=cpu)
+    gen = torch.Generator().manual_seed(18)
+    serve = torch.rand((SHARD_BATCH, SIZE, SIZE, 3), generator=gen)
+    calib = torch.rand((CALIB_IMAGES, SIZE, SIZE, 3), generator=gen)
+
+    # the references on the card, in this process
+    step, opt = train_step_fn(train_config("float32", "momentum"))
+    single = {}
+    for name, order in (("batch", torch.arange(n)),
+                        ("reversed", torch.arange(n).flip(0))):
+        new, metrics = step(fresh_state(opt, dev), images[order].to(dev),
+                            tuple(y[order].to(dev) for y in y_true))
+        single[name] = (to_device(new["params"], cpu),
+                        to_device(new["batch_stats"], cpu),
+                        {k: m.cpu() for k, m in metrics.items()
+                         if k != "lr"})
+        del new
+    whole = {}
+    for mode in ("packed", "stem8"):
+        det = build_detector(variables, anchors, C, (SIZE, SIZE), device=dev,
+                             mode=mode, calibration_images=calib.to(dev),
+                             **SERVING)
+        whole[mode] = detections(det(serve.to(dev)), SHARD_BATCH)
+        del det
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    torch.save({"train_variables": train_vars, "images": images,
+                "y_true": y_true, "orders": orders,
+                "serve_variables": to_device(variables, cpu),
+                "serve_images": serve, "calib": calib,
+                "anchors": torch.from_numpy(anchors), "device": dev.type},
+               d / "inputs.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(r, 2, str(d)))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    codes = [p.exitcode for p in procs]
+    print(f"two ranks on {torch.cuda.get_device_name(0)} over gloo: exit "
+          f"codes {codes}, {time.perf_counter() - t0:.1f} s wall")
+    check(codes == [0, 0], f"a rank of the two-rank run failed: {codes}")
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=True)
+             for r in range(2)]
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"]
+          and [r["device"] for r in ranks] == [str(dev)] * 2,
+          f"two ranks: {[(r['backend'], r['device']) for r in ranks]}")
+
+    # the DP step against the single-device step
+    r0 = ranks[0]
+    check(all(ranks[0][k]["digest"] == ranks[1][k]["digest"]
+              for k in orders), "the two ranks' parameters differ")
+    before = flatten(train_vars["params"])
+
+    def updates(params):
+        return {p: t.double() - before[p].double()
+                for p, t in flatten(params).items()}
+    u_dp, u_part = (updates(r0[k]["params"]) for k in orders)
+    u_one, u_rev = (updates(single[k][0]) for k in ("batch", "reversed"))
+    leaf_noise = max(max(fro(u_rev[p], u_one[p]) for p in before),
+                     max(fro(u_part[p], u_dp[p]) for p in before))
+
+    def whole_of(u):
+        return torch.cat([u[p].reshape(-1) for p in before])
+    all_noise = max(fro(whole_of(u_rev), whole_of(u_one)),
+                    fro(whole_of(u_part), whole_of(u_dp)))
+    stats_noise = max(rel_err(single["reversed"][1][s][n][k],
+                              single["batch"][1][s][n][k])
+                      for s in single["batch"][1]
+                      for n in single["batch"][1][s] for k in ("mean", "var"))
+
+    def within(err, tol, noise, what):
+        check(err <= max(tol, 2 * noise), f"two-rank DP step: {what} "
+              f"{err:.3g} against the single-device step, over {tol} and "
+              f"twice the GPU's noise {noise:.3g}")
+
+    for k in ("total", "xy", "wh", "conf", "class", "l2"):
+        within(rel_err(r0["batch"]["metrics"][k], single["batch"][2][k]),
+               1e-4, rel_err(single["reversed"][2][k],
+                             single["batch"][2][k]), f"loss {k}")
+    stats_err = 0.0
+    for s, tree in single["batch"][1].items():
+        for n_, st in tree.items():
+            for k in ("mean", "var"):
+                err = rel_err(r0["batch"]["batch_stats"][s][n_][k], st[k])
+                stats_err = max(stats_err, err)
+                within(err, 1e-4, stats_noise, f"BN statistics {s}/{n_}")
+    det_err = max(rel_err(u_dp[f"head/{n_}/{k}"], u_one[f"head/{n_}/{k}"])
+                  for n_ in DETECTION_CONVS for k in ("w", "b"))
+    within(det_err, 1e-4, leaf_noise, "detection-conv updates")
+    leaf_err = max(fro(u_dp[p], u_one[p]) for p in before)
+    within(leaf_err, 1e-4, leaf_noise, "the worst leaf's update (norm)")
+    all_err = fro(whole_of(u_dp), whole_of(u_one))
+    within(all_err, 1e-4, all_noise, "all updates (norm)")
+    print(f"two-rank DP step (gloo, fp32, momentum, global batch {n}, "
+          f"{SIZE}^2) against the single-device step: loss total "
+          f"{float(r0['batch']['metrics']['total']):.6f} / "
+          f"{float(single['batch'][2]['total']):.6f}, BN statistics worst "
+          f"{stats_err:.3g} (noise {stats_noise:.3g}), detection convs "
+          f"{det_err:.3g}, worst leaf {leaf_err:.3g} and all updates "
+          f"{all_err:.3g} in norm (GPU noise {leaf_noise:.3g} / "
+          f"{all_noise:.3g}); the ranks' parameters bit-equal; "
+          f"{r0['step_ms']:.3f} / {ranks[1]['step_ms']:.3f} ms a step on "
+          f"ranks 0 / 1 (a same-card functional run: two ranks share one "
+          f"GPU, gloo stages the collectives, not a scaling number) [{card}]")
+
+    for mode in ("packed", "stem8"):
+        got = [r[mode] for r in ranks]
+        same = all(torch.equal(got[0]["whole"][k], got[1]["whole"][k])
+                   for k in got[0]["whole"])
+        for r in got:
+            max_err["nms_shared"] = max(max_err["nms_shared"], r["k1_err"])
+        gathered = detections(got[0]["whole"], SHARD_BATCH)
+        n1, f1 = match_detections(whole[mode], gathered, 0.0)
+        n2, f2 = match_detections(gathered, whole[mode], 0.0)
+        print(f"make_sharded_detector {mode}, batch {SHARD_BATCH} "
+              f"({SHARD_BATCH // 2} a rank): nms_shared launches "
+              f"{[r['k1'] for r in got]} a rank, each rank's rows == "
+              f"build_detector's {[r['slice_equal'] for r in got]}, kernel "
+              f"== plain on its candidates {[r['k1_err'] == 0 for r in got]}"
+              f", gathered batch the same on both ranks {same}; against the "
+              f"whole batch on one device: {f1}/{n1} found, {f2}/{n2} the "
+              f"other way")
+        check(same and all(r["slice_equal"] and r["k1"] == 1
+                           and r["k1_err"] == 0 for r in got),
+              f"make_sharded_detector {mode}: a rank's check failed")
+        check(n1 > 0 and f1 >= 0.99 * n1 and f2 >= 0.99 * n2,
+              f"make_sharded_detector {mode}: {f1}/{n1}, {f2}/{n2} against "
+              f"the whole batch")
+
+
+def dp_cli_train(dev: torch.device, card: str, tmp: Path) -> None:
+    """Phase 16, part 3: cli.train --num_processes 2 (two processes on the
+    one card over gloo, a file:// rendezvous) on DP_TRAIN_IMAGES + 8
+    synthetic 416^2 images: batch 8 (4 a rank), one epoch and its
+    validation (batch 2: two batches a rank), the default recipe without
+    multi-scale (bf16, the head trained). Each process
+    reports its kernel counts: rc 0 on both, the same mAP line on both,
+    one per-group launch per validation batch a rank and no
+    shared-candidate launch, one best_model_ checkpoint, events from rank
+    0 only."""
+    import re
+
+    from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
+    d = tmp / "dp_cli"
+    train = generate_dataset(str(d / "train"), DP_TRAIN_IMAGES, seed=5,
+                             img_size=(SIZE, SIZE), prefix="train")
+    val = generate_dataset(str(d / "val"), 8, seed=6, img_size=(SIZE, SIZE),
+                           prefix="val")
+    launcher = ("import sys\n"
+              "from yolov3_tensorflow_tpu_torch.cli import train\n"
+              "from yolov3_tensorflow_tpu_torch.ops import nms_cuda\n"
+              "rc = train.main(sys.argv[1:])\n"
+              "print('kernel launches: nms', nms_cuda.nms_keep_mask.launches,"
+              " 'nms_shared', nms_cuda.nms_keep_mask_shared.launches)\n"
+              "sys.exit(rc)\n")
+
+    def argv(pid):
+        return [sys.executable, "-c", launcher, "--device", dev.type,
+                "--coordinator_address", f"file://{d / 'rendezvous'}",
+                "--num_processes", "2", "--process_id", str(pid),
+                f"data.train_file={train['annotation_file']}",
+                f"data.val_file={val['annotation_file']}",
+                "data.multi_scale_train=false", "train.batch_size=8",
+                "train.total_epochs=1", "train.train_evaluation_step=8",
+                "train.val_evaluation_epoch=1", "train.warm_up_epoch=0",
+                "train.use_warm_up=false", "train.num_data_parallel=2",
+                "eval.batch_size=2",
+                f"train.save_dir={d / 'ckpt'}",
+                f"train.log_dir={d / f'logs_p{pid}'}",
+                f"train.progress_log_path={d / f'progress_p{pid}.log'}"]
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv(pid), cwd=str(ROOT), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    for pid, out in enumerate(outs):
+        print(f"--- cli.train rank {pid} (last lines)")
+        print("\n".join(out.splitlines()[-6:]))
+    check(rcs == [0, 0], f"cli.train --num_processes 2: rcs {rcs}")
+    maps = [re.findall(r"EVAL: Recall.*mAP: \S+", out) for out in outs]
+    launches = [re.search(r"kernel launches: nms (\d+) nms_shared (\d+)",
+                          out) for out in outs]
+    check(all(launches), "cli.train: a rank printed no kernel counts")
+    k2 = [int(m.group(1)) for m in launches]
+    k1 = [int(m.group(2)) for m in launches]
+    ckpts = sorted(os.listdir(d / "ckpt"))
+    logs = sorted(p.name for p in d.iterdir() if p.name.startswith("logs_"))
+    print(f"cli.train --num_processes 2 ({DP_TRAIN_IMAGES} images, batch 8 "
+          f"over 2 ranks on one card, gloo, 1 epoch + validation): rcs "
+          f"{rcs}, {wall:.1f} s wall; mAP lines {maps}; nms launches {k2} "
+          f"(2 validation batches a rank), nms_shared {k1}; checkpoints "
+          f"{ckpts}; log dirs {logs} [{card}]")
+    check(maps[0] and maps[0] == maps[1], f"cli.train: mAP lines {maps}")
+    check(k2 == [2, 2] and k1 == [0, 0],
+          f"cli.train: nms launches {k2}, nms_shared {k1}")
+    check(len(ckpts) == 1 and ckpts[0].startswith("best_model_"),
+          f"cli.train: checkpoints {ckpts}")
+    check(logs == ["logs_p0"] and not (d / "progress_p1.log").exists(),
+          f"cli.train: rank 1 wrote logs: {logs}")
+
+
+def dp_phase(dev: torch.device, card: str, tmp: Path, anchors: np.ndarray,
+             variables: dict, max_err: dict) -> None:
+    """Phase 16: data parallelism on the card (see the module docstring)."""
+    dp_world1(dev, card, tmp, anchors, max_err)
+    dp_two_ranks(dev, card, tmp, anchors, variables, max_err)
+    dp_cli_train(dev, card, tmp)
 
 
 def main() -> int:
@@ -2371,7 +2970,17 @@ def main() -> int:
         print(f"int8 serving: {time.perf_counter() - t0:.1f} s wall")
         check_no_jax()
 
-    # ---- 15. records -----------------------------------------------------
+        # ---- 15. the serving policy on CUDA --------------------------------
+        policy_phase(dev, card, tmp)
+        check_no_jax()
+
+        # ---- 16. data parallelism ----------------------------------------
+        t0 = time.perf_counter()
+        dp_phase(dev, card, tmp, anchors, variables, max_err)
+        print(f"data parallelism: {time.perf_counter() - t0:.1f} s wall")
+        check_no_jax()
+
+    # ---- 17. records -----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

@@ -32,9 +32,12 @@ from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
                                                         spread_head)
 from yolov3_tensorflow_tpu_torch.ops import postprocess as port_post
 from yolov3_tensorflow_tpu_torch.ops import preprocess as port_pre
-from yolov3_tensorflow_tpu_torch.testing import (match_detections,
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 match_detections,
                                                  numpy_variables)
 from yolov3_tensorflow_tpu_torch.utils.weights import save_darknet_weights
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 NAMES = str(ASSETS / "demo_data" / "synth.names")

@@ -48,9 +48,12 @@ from yolov3_tensorflow_tpu_torch.ops import postprocess as port_post
 from yolov3_tensorflow_tpu_torch.ops import quantize as port_quant
 from yolov3_tensorflow_tpu_torch.scripts import (overfit_gate,
                                                  validate_quantized)
-from yolov3_tensorflow_tpu_torch.testing import (match_detections,
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 match_detections,
                                                  numpy_variables)
 from yolov3_tensorflow_tpu_torch.utils.weights import save_darknet_weights
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ROOT = Path(__file__).resolve().parent.parent
 ASSETS = ROOT / "assets"

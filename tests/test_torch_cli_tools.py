@@ -43,7 +43,8 @@ from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
 from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
                                                         spread_head)
 from yolov3_tensorflow_tpu_torch.models.yolov3 import init_yolov3
-from yolov3_tensorflow_tpu_torch.testing import numpy_variables
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 numpy_variables)
 from yolov3_tensorflow_tpu_torch.train.checkpoint import CheckpointStore
 from yolov3_tensorflow_tpu_torch.train.optimizers import flatten
 from yolov3_tensorflow_tpu_torch.train.trainer import (make_eval_step,
@@ -51,6 +52,8 @@ from yolov3_tensorflow_tpu_torch.train.trainer import (make_eval_step,
 from yolov3_tensorflow_tpu_torch.utils import coco, kmeans
 from yolov3_tensorflow_tpu_torch.utils.weights import (load_darknet_weights,
                                                        save_darknet_weights)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 EVAL_OVERRIDES = ["model.compute_dtype=float32", "eval.batch_size=2",

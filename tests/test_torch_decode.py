@@ -16,6 +16,9 @@ import torch
 from yolov3_tensorflow_tpu.models import decode as jdecode
 from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
 from yolov3_tensorflow_tpu_torch.models import decode as tdecode
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)
 C = 20

@@ -34,6 +34,9 @@ from yolov3_tensorflow_tpu_torch.data import device_augment as tda
 from yolov3_tensorflow_tpu_torch.data import loader as tload
 from yolov3_tensorflow_tpu_torch.data.augment import letterbox_params
 from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)
 

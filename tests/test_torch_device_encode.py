@@ -28,6 +28,9 @@ from yolov3_tensorflow_tpu_torch.data.device_encode import \
     encode_labels_device
 from yolov3_tensorflow_tpu_torch.data.encoder import (encode_labels,
                                                       pad_ground_truth)
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)
 C = 7

@@ -37,7 +37,10 @@ def test_every_module_imports_with_jax_blocked():
                  "cli.train", "data.device_augment", "data.device_encode",
                  "cli.evaluate", "cli.convert_weights",
                  "cli.strip_checkpoint", "cli.kmeans_anchors",
-                 "cli.parse_voc", "utils.kmeans", "scripts.overfit_gate"):
+                 "cli.parse_voc", "utils.kmeans", "scripts.overfit_gate",
+                 "parallel", "parallel.multihost", "parallel.mesh",
+                 "parallel.data_parallel", "parallel.serving",
+                 "scripts.parity_demo"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "for blocked in ('jax', 'optax', 'orbax'):\n"

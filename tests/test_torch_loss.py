@@ -20,6 +20,9 @@ from yolov3_tensorflow_tpu.ops import boxes as jb
 from yolov3_tensorflow_tpu.ops import losses as jlo
 from yolov3_tensorflow_tpu_torch.ops import boxes as tb
 from yolov3_tensorflow_tpu_torch.ops import losses as tlo
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 RTOL = 1e-5
 WEIGHTS = (1.0, 0.7, 0.3, 1.3)    # terms mixed for one gradient check

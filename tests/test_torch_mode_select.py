@@ -2,7 +2,8 @@
 package's, on the CPU.
 
 - `select_serving_mode` gives JAX's answer over a grid of sizes and the
-  three budgets, and raises on an unknown budget;
+  three budgets on the CPU, and raises on an unknown budget; on CUDA it
+  follows the H100's measured table (bf16 packed under every budget);
 - `build_auto_detector` takes JAX's route for each budget (packed, stem8
   or the int8 packed detector) and falls back to packed without
   calibration images;
@@ -34,8 +35,11 @@ from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
 from yolov3_tensorflow_tpu_torch.ops import postprocess as tpp
 from yolov3_tensorflow_tpu_torch.ops import quantize as tq
 from yolov3_tensorflow_tpu_torch.ops.postprocess import detections_to_numpy
-from yolov3_tensorflow_tpu_torch.testing import (match_detections,
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 match_detections,
                                                  numpy_variables)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)
@@ -58,6 +62,51 @@ def test_select_serving_mode_matches_jax(quantize):
 def test_select_serving_mode_rejects_unknown_budget():
     with pytest.raises(ValueError, match="none|hybrid|full"):
         tpp.select_serving_mode((416, 416), quantize="fast")
+
+
+CUDA = torch.device("cuda")       # a device type only: nothing runs there
+
+
+@pytest.mark.parametrize("quantize", ["none", "hybrid", "full"])
+def test_select_serving_mode_on_cuda_follows_the_h100_table(quantize):
+    """On CUDA the policy is the H100's measured table, in which bf16
+    packed beat stem8 and int8 at every benched size: packed under every
+    budget there, and at every size of the CPU grid (the nearest table
+    size decides). Never a mode the table measured slower than packed."""
+    for size in tpp._CUDA_MODE_TABLE:
+        assert tpp.select_serving_mode(size, quantize=quantize,
+                                       device=CUDA) == "packed", size
+    for size in SIZES:
+        mode = tpp.select_serving_mode(size, quantize=quantize, device=CUDA)
+        assert mode == "packed", size
+    for rates in tpp._CUDA_MODE_TABLE.values():
+        assert rates["packed"] > max(rates["stem8"], rates["int8"])
+    assert tpp.select_serving_mode((416, 416), quantize=quantize,
+                                   device=torch.device("cuda", 1)) == "packed"
+
+
+def test_select_serving_mode_on_cuda_picks_the_fastest_allowed(monkeypatch):
+    """The CUDA table is data: where a quantized mode measures faster, the
+    budgets that allow it pick it, at the table size nearest in area."""
+    table = {(416, 416): {"packed": 2.0, "stem8": 3.0, "int8": 4.0},
+             (896, 1344): {"packed": 2.0, "stem8": 3.0, "int8": 1.0}}
+    monkeypatch.setattr(tpp, "_CUDA_MODE_TABLE", table)
+    pick = {q: tpp.select_serving_mode((320, 320), quantize=q, device=CUDA)
+            for q in ("none", "hybrid", "full")}
+    assert pick == {"none": "packed", "hybrid": "stem8", "full": "int8"}
+    assert tpp.select_serving_mode((1344, 896), quantize="full",
+                                   device=CUDA) == "stem8"
+    with pytest.raises(ValueError, match="none|hybrid|full"):
+        tpp.select_serving_mode((416, 416), quantize="fast", device=CUDA)
+
+
+def test_int8_warning_cites_the_device_table():
+    """detect_image --mode int8 warns where the requested device's table
+    says int8 loses (on CUDA at 416^2) and names that table."""
+    assert tpp.select_serving_mode((416, 416), quantize="full",
+                                   device=CUDA) != "int8"
+    assert "H100" in tpp.SERVING_TABLES["cuda"]
+    assert "TPU" in tpp.SERVING_TABLES["cpu"]
 
 
 @pytest.fixture(scope="module")

@@ -23,7 +23,10 @@ from yolov3_tensorflow_tpu_torch.models import yolov3 as ty
 from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
                                                         spread_head)
 from yolov3_tensorflow_tpu_torch.ops import fast_postprocess as tfp
-from yolov3_tensorflow_tpu_torch.testing import numpy_variables
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 numpy_variables)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 NUM_CLASSES = 80

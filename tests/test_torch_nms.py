@@ -23,8 +23,10 @@ from yolov3_tensorflow_tpu_torch.ops import nms_cuda
 from yolov3_tensorflow_tpu_torch.ops.nms_cuda import (
     batched_nms_shared, nms_keep_mask_shared, nms_keep_mask_shared_reference,
     shared_plan)
-from yolov3_tensorflow_tpu_torch.testing import (bench_case, card_cases,
-                                                 nms_cases)
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS, bench_case,
+                                                 card_cases, nms_cases)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CASES = {c.name: c for c in nms_cases(batch=2)}
 SMALL_CARD_CASES = {c.name: c for c in card_cases()

@@ -32,7 +32,10 @@ from yolov3_tensorflow_tpu_torch.ops.nms_cuda import (batched_nms_kernel,
                                                       keep_mask_by_blocks,
                                                       nms_keep_mask,
                                                       nms_keep_mask_reference)
-from yolov3_tensorflow_tpu_torch.testing import per_class_cases
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 per_class_cases)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 # G <= 8 and K in {128, 256} against the JAX kernel: interpret mode is slow
 CASES_JAX = {c.name: c for c in per_class_cases(groups=4, ks=(128, 256),

@@ -26,6 +26,9 @@ from yolov3_tensorflow_tpu.train import schedules as jsched
 from yolov3_tensorflow_tpu_torch.config import Config
 from yolov3_tensorflow_tpu_torch.train import optimizers as topt
 from yolov3_tensorflow_tpu_torch.train import schedules as tsched
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 STEPS = [0, 1, 2, 5, 9, 10, 11, 19, 20, 29, 30, 31, 49, 50, 51, 99, 100,
          101, 250, 1000]
@@ -162,6 +165,34 @@ def test_optimizer_matches_optax(name, update_part):
         np.testing.assert_allclose(
             topt.flatten(tparams)[path].numpy(), want, rtol=0,
             atol=1e-6 * np.abs(want).max() + slack.get(path, 0.0))
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "rmsprop", "adam"])
+def test_update_mask_matching_no_leaf(name):
+    """`train.update_part=None` parses to ("None",) in both packages'
+    configs (the JAX two-process test trains so): a mask of no leaf. JAX
+    updates nothing; the port's update returns no updates and counts the
+    step, instead of failing on an empty list of leaves."""
+    params = _f32(_tree(0))
+    jmask = jopt.path_prefix_mask(params, ("None",))
+    assert not any(jax.tree_util.tree_leaves(jmask))
+    tx = jopt.build_optimizer(name, jsched.fixed(0.1), grad_clip_norm=10.0,
+                              update_mask=jmask)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    ju, _ = tx.update(jax.tree_util.tree_map(jnp.asarray, _f32(_tree(1))),
+                      tx.init(jparams), jparams)
+    assert not any(np.asarray(u).any()
+                   for u in jax.tree_util.tree_leaves(ju))
+    tparams = jax.tree_util.tree_map(torch.from_numpy, params)
+    opt = topt.build_optimizer(name, tsched.fixed(0.1), grad_clip_norm=10.0,
+                               update_mask=topt.path_prefix_mask(
+                                   tparams, ("None",)))
+    assert opt.trainable(tparams) == []
+    state = opt.init(tparams)
+    tu, state = opt.update({}, state)
+    assert tu == {} and state["count"] == 1
+    assert topt.flatten(topt.apply_updates(tparams, tu)).keys() == \
+        topt.flatten(tparams).keys()
 
 
 def test_clip_by_per_leaf_norm_matches_jax():

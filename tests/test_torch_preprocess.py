@@ -20,8 +20,11 @@ from yolov3_tensorflow_tpu_torch.models.convert import (from_jax_variables,
                                                         spread_head)
 from yolov3_tensorflow_tpu_torch.ops import preprocess as tpre
 from yolov3_tensorflow_tpu_torch.ops.postprocess import detections_to_numpy
-from yolov3_tensorflow_tpu_torch.testing import (match_detections,
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 match_detections,
                                                  numpy_variables)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)

@@ -27,6 +27,9 @@ import pytest
 import torch
 
 from yolov3_tensorflow_tpu_torch.scripts import exp_mxu_shapes as probes
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCK = 64                      # rows per grid step, 2 steps

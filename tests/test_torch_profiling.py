@@ -30,8 +30,11 @@ from yolov3_tensorflow_tpu_torch.models.convert import from_jax_variables
 from yolov3_tensorflow_tpu_torch.models.yolov3 import (BACKBONE_PLAN,
                                                        fold_batch_norm)
 from yolov3_tensorflow_tpu_torch.scripts import profile_stages
-from yolov3_tensorflow_tpu_torch.testing import numpy_variables
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 numpy_variables)
 from yolov3_tensorflow_tpu_torch.utils import profiling
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 SIZE = 64

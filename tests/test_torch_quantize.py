@@ -47,7 +47,10 @@ from yolov3_tensorflow_tpu_torch.models.layers import upsample_nearest_2x
 from yolov3_tensorflow_tpu_torch.ops import fast_postprocess as tfp
 from yolov3_tensorflow_tpu_torch.ops import int8_conv as I8
 from yolov3_tensorflow_tpu_torch.ops import quantize as tq
-from yolov3_tensorflow_tpu_torch.testing import numpy_variables
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 numpy_variables)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 C = 3

@@ -17,6 +17,9 @@ import torch
 
 from yolov3_tensorflow_tpu_torch.models.yolov3 import _head_input_channels
 from yolov3_tensorflow_tpu_torch.scripts import roofline
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ROOT = Path(__file__).resolve().parents[1]
 BATCH = 128

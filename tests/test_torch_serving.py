@@ -34,8 +34,11 @@ from yolov3_tensorflow_tpu_torch.ops.postprocess import (build_detector,
                                                          detections_to_numpy,
                                                          pack_detections,
                                                          unpack_detections)
-from yolov3_tensorflow_tpu_torch.testing import (match_detections,
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 match_detections,
                                                  numpy_variables)
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)

@@ -23,6 +23,9 @@ from yolov3_tensorflow_tpu_torch.evaluation import metrics as tm
 from yolov3_tensorflow_tpu_torch.evaluation import voc as tvoc
 from yolov3_tensorflow_tpu_torch.train import checkpoint as tck
 from yolov3_tensorflow_tpu_torch.utils import summary as tsum
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 ANCHORS = np.asarray(DEFAULT_ANCHORS, np.float32)
 

@@ -17,6 +17,9 @@ import torch
 
 from yolov3_tensorflow_tpu.models import layers as jl
 from yolov3_tensorflow_tpu_torch.models import layers as tl
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 RTOL = 1e-5
 

@@ -37,8 +37,11 @@ from yolov3_tensorflow_tpu_torch.data.encoder import encode_labels
 from yolov3_tensorflow_tpu_torch.models import yolov3 as ty
 from yolov3_tensorflow_tpu_torch.models.convert import from_jax_variables
 from yolov3_tensorflow_tpu_torch.ops import losses as tlo
-from yolov3_tensorflow_tpu_torch.testing import numpy_variables
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 numpy_variables)
 from yolov3_tensorflow_tpu_torch.train.optimizers import flatten, unflatten
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 C = 80
 SIZE = 64

@@ -38,9 +38,12 @@ from yolov3_tensorflow_tpu_torch.data.loader import DataLoader
 from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
 from yolov3_tensorflow_tpu_torch.models.convert import from_jax_variables
 from yolov3_tensorflow_tpu_torch.ops.losses import LOSS_TERMS
-from yolov3_tensorflow_tpu_torch.testing import numpy_variables
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 numpy_variables)
 from yolov3_tensorflow_tpu_torch.train.optimizers import flatten
 from yolov3_tensorflow_tpu_torch.train.trainer import Trainer
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 
@@ -358,7 +361,8 @@ def test_cli_train_refusals(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli_train.main(["--device", "cuda"])
-    with pytest.raises(SystemExit, match="item 11"):
+    # a multi-process run needs every rank's id
+    with pytest.raises(ValueError, match="--process_id"):
         cli_train.main(["--device", "cpu", "--coordinator_address",
                         "localhost:1234", "--num_processes", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -370,12 +374,14 @@ def test_cli_train_refusals(tmp_path, monkeypatch):
     ("data__device_encode", True, "item 9"),
     ("train__num_data_parallel", 2, "item 11")])
 def test_unported_modes_raise(root, key, value, item):
-    """Data parallelism (item 11) raises naming its ROADMAP item; the
-    device data path (item 9), refused before it was ported, now builds
-    a trainer (tests/test_torch_trainer_device.py trains with it)."""
+    """The device data path (item 9) and data parallelism (item 11),
+    refused before they were ported, now build a trainer
+    (tests/test_torch_trainer_device.py and tests/test_torch_multihost.py
+    train with them); data parallelism over more devices than the run
+    has processes is refused, naming how to launch them."""
     cfg = tiny(Config, root, **{key: value})
     if item == "item 9":
         Trainer(cfg, device=CPU).close()
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="--num_processes 2"):
         Trainer(cfg, device=CPU)

@@ -41,6 +41,9 @@ from yolov3_tensorflow_tpu_torch.train.schedules import build_schedule
 from yolov3_tensorflow_tpu_torch.train.trainer import (Trainer, copied_arrays,
                                                        make_train_step,
                                                        to_host)
+from yolov3_tensorflow_tpu_torch.testing import CPU_TEST_THREADS
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 SIZE = (64, 64)

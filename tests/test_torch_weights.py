@@ -15,8 +15,11 @@ from yolov3_tensorflow_tpu.utils import weights as jweights
 from yolov3_tensorflow_tpu_torch.models.convert import from_jax_variables
 from yolov3_tensorflow_tpu_torch.models.yolov3 import (darknet_layer_order,
                                                        init_yolov3)
-from yolov3_tensorflow_tpu_torch.testing import numpy_variables
+from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
+                                                 numpy_variables)
 from yolov3_tensorflow_tpu_torch.utils import weights as tweights
+
+torch.set_num_threads(CPU_TEST_THREADS)
 
 CPU = torch.device("cpu")
 C = 2

@@ -6,9 +6,14 @@ and keeps the reference's module names so that each counterpart is easy to
 find:
 
 - `models.layers`, `models.yolov3`: the BN-folded Darknet-53 + FPN forward
-  and the live-BN training and eval forward (`yolov3_forward`) over plain
-  param dicts keyed by the JAX paths (`backbone/conv_i`, `head/conv_i`),
-  convs in channels_last on cuDNN
+  and the live-BN training and eval forward (`yolov3_forward`, sync batch
+  norm over a process group) over plain param dicts keyed by the JAX paths
+  (`backbone/conv_i`, `head/conv_i`), convs in channels_last on cuDNN;
+  `YoloV3`, the reference's class API
+- `parallel`: data-parallel and multi-process training over a
+  `torch.distributed` process group (`multihost`: bring-up and the
+  validation gathers; `mesh`; `data_parallel`: the DP train step and eval
+  forward) and batch-sharded serving (`serving`)
 - `ops.losses`: the YOLOv3 loss and the L2 penalty
 - `train.schedules`, `train.optimizers`, `train.checkpoint`,
   `train.trainer`, `cli.train`: learning-rate schedules, optimizers with

@@ -22,8 +22,8 @@ from yolov3_tensorflow_tpu_torch.cli.common import (load_anchors,
                                                     resolve_device, str2bool)
 from yolov3_tensorflow_tpu_torch.data.augment import letterbox_resize
 from yolov3_tensorflow_tpu_torch.ops.postprocess import (
-    build_auto_detector, build_detector, check_mode, detections_to_numpy,
-    select_serving_mode)
+    SERVING_TABLES, build_auto_detector, build_detector, check_mode,
+    detections_to_numpy, select_serving_mode)
 from yolov3_tensorflow_tpu_torch.ops.quantize import build_detector_int8
 from yolov3_tensorflow_tpu_torch.utils.viz import (get_color_table,
                                                    plot_one_box)
@@ -56,8 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", type=str, default="hybrid",
                    choices=["none", "hybrid", "full"],
                    help="quantization budget for --mode auto: none (bf16 "
-                        "packed), hybrid (stem8), full (int8 where "
-                        "select_serving_mode picks it)")
+                        "packed), hybrid (up to stem8), full (up to int8); "
+                        "select_serving_mode picks the fastest mode the "
+                        "budget allows as the device type measured it "
+                        "(never slower than bf16)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--output", type=str, default="detection_result.jpg")
@@ -125,9 +127,11 @@ def main(argv=None) -> int:
             variables, anchors, num_classes, img_size,
             quantize=args.quantize, calibration_images=inp, **common)
     elif args.mode == "int8":
-        if select_serving_mode(img_size, quantize="full") != "int8":
+        if select_serving_mode(img_size, quantize="full",
+                               device=device) != "int8":
             print(f"warning: full int8 was measured SLOWER than bf16 at "
-                  f"{img_size[0]}x{img_size[1]} on a TPU (the policy of "
+                  f"{img_size[0]}x{img_size[1]} in "
+                  f"{SERVING_TABLES[device.type]} (the policy of "
                   f"ops.postprocess.select_serving_mode) - consider "
                   f"--mode auto", file=sys.stderr)
         detect, _ = build_detector_int8(

@@ -3,17 +3,28 @@
   python -m yolov3_tensorflow_tpu_torch.cli.train \
       --config configs/voc.json train.batch_size=32 data.train_file=train.txt
   (on the GPU by default; add --device cpu to train without one)
+
+Data-parallel training runs one process per device, each started with the
+same arguments and its own --process_id (or under torchrun, which sets the
+rank in the environment), with train.num_data_parallel set to the number of
+processes:
+
+  python -m yolov3_tensorflow_tpu_torch.cli.train --num_processes 2 \
+      --process_id 0 --coordinator_address 10.0.0.1:29500 \
+      train.num_data_parallel=2 ...
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from yolov3_tensorflow_tpu_torch.cli.common import resolve_device
 from yolov3_tensorflow_tpu_torch.config import load_config
+from yolov3_tensorflow_tpu_torch.parallel.multihost import \
+    initialize_distributed
 from yolov3_tensorflow_tpu_torch.train.trainer import Trainer
-
-MULTIHOST_FLAGS = ("coordinator_address", "num_processes", "process_id")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -25,29 +36,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="optional JSON config file")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to train on (cuda, cuda:1, cpu)")
-    # the JAX package's multi-host flags: parsed so that its command lines
-    # give a clear refusal
-    for flag in MULTIHOST_FLAGS:
-        p.add_argument(f"--{flag}", type=str, default=None,
-                       help="multi-host training: not ported yet")
+                   help="torch device to train on (cuda, cuda:1, cpu); in a "
+                        "multi-process run cuda means cuda:LOCAL_RANK")
+    # multi-process bring-up; under torchrun these come from the
+    # environment instead
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0, or a file:// URL every "
+                        "process can reach, for torch.distributed")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("overrides", nargs="*", default=[])
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    given = [f"--{f}" for f in MULTIHOST_FLAGS if getattr(args, f) is not None]
-    if given:
-        raise SystemExit(f"{', '.join(given)}: multi-host training is not "
-                         f"ported yet (ROADMAP queue 1, item 11)")
-    device = resolve_device(args.device)
-    cfg = load_config(args.config or None, args.overrides).finalize()
-    trainer = Trainer(cfg, seed=args.seed, device=device)
+    device = initialize_distributed(
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id,
+        device=resolve_device(args.device))
     try:
-        trainer.fit()
+        cfg = load_config(args.config or None, args.overrides).finalize()
+        trainer = Trainer(cfg, seed=args.seed, device=device)
+        try:
+            trainer.fit()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

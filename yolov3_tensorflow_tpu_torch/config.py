@@ -6,9 +6,9 @@ the dataclass tree (`DataConfig`, `ModelConfig`, `TrainConfig`,
 files. Derived values (anchors, class names, image counts, epoch-to-step
 conversions) are computed by `Config.finalize()`, never at import time.
 
-The fields of modes the port does not run yet stay, so that a config file
-of the JAX package loads: `train.num_data_parallel > 1` (ROADMAP queue 1,
-item 11) is refused by the trainer.
+Every field of the JAX package's tree is here, so that its config files
+load; `train.num_data_parallel` counts ranks of one device each
+(`parallel.mesh.make_data_mesh`).
 """
 
 from __future__ import annotations
@@ -142,7 +142,8 @@ class TrainConfig:
     # resume from the latest checkpoint in save_dir if one exists
     auto_resume: bool = False
 
-    # data-parallel replicas; above 1 is refused (ROADMAP queue 1, item 11)
+    # data-parallel replicas: the number of processes of the run, one
+    # device each (parallel.mesh.make_data_mesh)
     num_data_parallel: int = 1
 
 

@@ -20,7 +20,10 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from yolov3_tensorflow_tpu_torch.parallel.multihost import all_reduce_sum
 
 Params = Dict[str, torch.Tensor]
 
@@ -125,7 +128,7 @@ def leaky_relu_train(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
 
 
 def batch_norm(y: torch.Tensor, p: Params, s: Params, *, train: bool,
-               momentum: float = 0.99, eps: float = 1e-5
+               momentum: float = 0.99, eps: float = 1e-5, group=None
                ) -> Tuple[torch.Tensor, Params]:
     """Batch normalization of an NCHW tensor, as the JAX package computes it.
 
@@ -138,12 +141,22 @@ def batch_norm(y: torch.Tensor, p: Params, s: Params, *, train: bool,
     is `y * a + b` in y's dtype, with `a = gamma / sqrt(var + eps)` and
     `b = beta - mean * a` folded in fp32.
 
+    With a process `group` (JAX's `axis_name`) training is sync batch
+    norm: `mean` and `mean_sq` are the group's averages of the ranks' own,
+    summed by a differentiable all-reduce and divided by the group's size
+    (a group of one gives the single-device bits), so equal shards see the
+    global batch's moments. (`nn.SyncBatchNorm` keeps an unbiased running
+    variance and PyTorch's momentum.)
+
     Returns (normalized activations, new moving statistics); the new
     statistics carry no gradient."""
     if train:
         yf = y.float()
         mean = yf.mean(dim=(0, 2, 3))
         mean_sq = yf.square().mean(dim=(0, 2, 3))
+        if group is not None:
+            both = all_reduce_sum(torch.stack([mean, mean_sq]), group)
+            mean, mean_sq = (both / dist.get_world_size(group)).unbind()
         var = torch.clamp(mean_sq - mean.square(), min=0.0)
         new_s = {"mean": momentum * s["mean"] + (1.0 - momentum) * mean.detach(),
                  "var": momentum * s["var"] + (1.0 - momentum) * var.detach()}
@@ -159,12 +172,14 @@ def batch_norm(y: torch.Tensor, p: Params, s: Params, *, train: bool,
 def conv_bn_leaky(x: torch.Tensor, p: Params, s: Params, *, stride: int = 1,
                   train: bool = False, momentum: float = 0.99,
                   eps: float = 1e-5,
-                  compute_dtype: torch.dtype = torch.bfloat16
+                  compute_dtype: torch.dtype = torch.bfloat16, group=None
                   ) -> Tuple[torch.Tensor, Params]:
-    """The darknet conv: conv (no bias) -> live BN -> LeakyReLU(0.1), in
-    `compute_dtype`. Returns (activations, new BN statistics)."""
+    """The darknet conv: conv (no bias) -> live BN (synced over `group`) ->
+    LeakyReLU(0.1), in `compute_dtype`. Returns (activations, new BN
+    statistics)."""
     y = conv2d(x, p["w"], stride=stride, compute_dtype=compute_dtype)
-    y, new_s = batch_norm(y, p, s, train=train, momentum=momentum, eps=eps)
+    y, new_s = batch_norm(y, p, s, train=train, momentum=momentum, eps=eps,
+                          group=group)
     return leaky_relu_train(y).to(compute_dtype), new_s
 
 
@@ -172,7 +187,8 @@ def neck_split_bn_leaky(inter: torch.Tensor, route: torch.Tensor,
                         p_lat: Params, s_lat: Params, p_first: Params,
                         s_first: Params, *, train: bool,
                         momentum: float = 0.99, eps: float = 1e-5,
-                        compute_dtype: torch.dtype = torch.bfloat16
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        group=None
                         ) -> Tuple[torch.Tensor, Params, Params]:
     """The FPN junction of `neck_split_folded` with live batch norm.
 
@@ -183,15 +199,16 @@ def neck_split_bn_leaky(inter: torch.Tensor, route: torch.Tensor,
     forward or the backward. The two halves are added in `compute_dtype`,
     as the JAX layer adds them (the serving junction adds in fp32).
 
-    Returns (activations, new lateral stats, new conv_first stats)."""
+    Both batch norms sync over `group`. Returns (activations, new lateral
+    stats, new conv_first stats)."""
     lat, new_s_lat = conv_bn_leaky(inter, p_lat, s_lat, train=train,
                                    momentum=momentum, eps=eps,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype, group=group)
     ca = lat.shape[1]
     w = p_first["w"].to(compute_dtype)
     ya = conv2d(lat, w[:, :ca], compute_dtype=compute_dtype)
     yb = conv2d(route, w[:, ca:], compute_dtype=compute_dtype)
     y = upsample_nearest_2x(ya) + yb
     y, new_s_first = batch_norm(y, p_first, s_first, train=train,
-                                momentum=momentum, eps=eps)
+                                momentum=momentum, eps=eps, group=group)
     return leaky_relu_train(y).to(compute_dtype), new_s_lat, new_s_first

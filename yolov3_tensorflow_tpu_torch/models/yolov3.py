@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from yolov3_tensorflow_tpu_torch.models.layers import (conv_bias,
@@ -277,7 +278,7 @@ def yolov3_forward(variables: Dict[str, Params], images: torch.Tensor, *,
                    train: bool = False,
                    compute_dtype: torch.dtype = torch.bfloat16,
                    bn_momentum: float = 0.99, bn_eps: float = 1e-5,
-                   split_neck: bool = True
+                   split_neck: bool = True, group=None
                    ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, Params]]:
     """The forward with live batch norm: the training forward (train=True:
     batch moments, moving statistics updated) and the eval forward
@@ -289,12 +290,14 @@ def yolov3_forward(variables: Dict[str, Params], images: torch.Tensor, *,
     channels_last tensor; the new statistics mirror variables["batch_stats"]
     and carry no gradient. split_neck=True (the default) takes each FPN
     junction in the split form (`layers.neck_split_bn_leaky`); False the
-    literal upsample + concat + conv.
+    literal upsample + concat + conv. With a process `group` (JAX's
+    `axis_name`) the training batch norms sync their moments over it
+    (`layers.batch_norm`); without one no collective runs.
     """
     params, stats = variables["params"], variables["batch_stats"]
     new_stats: Params = {"backbone": {}, "head": {}}
     bn = dict(train=train, momentum=bn_momentum, eps=bn_eps,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, group=group)
 
     def bn_conv(scope: str, idx: int, x: torch.Tensor, stride: int = 1):
         name = f"conv_{idx}"
@@ -399,3 +402,49 @@ def yolov3_forward_folded(folded: Params, images: torch.Tensor, *,
                                compute_dtype=compute_dtype),
         compute_dtype=compute_dtype)
     return tuple(fmaps)
+
+
+# ---------------------------------------------------------------------------
+# Convenience wrapper
+# ---------------------------------------------------------------------------
+
+class YoloV3:
+    """Thin stateless wrapper bundling the architecture's hyperparameters,
+    with the JAX package's defaults (its `YoloV3`, after the reference
+    `yolov3` class): `init`, `forward`, `predict`, `compute_loss`, all
+    functions of explicit variables."""
+
+    def __init__(self, num_classes: int, anchors: np.ndarray,
+                 use_label_smooth: bool = False, use_focal_loss: bool = False,
+                 batch_norm_decay: float = 0.999, weight_decay: float = 5e-4,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        self.num_classes = int(num_classes)
+        self.anchors = np.asarray(anchors, np.float32)
+        self.use_label_smooth = use_label_smooth
+        self.use_focal_loss = use_focal_loss
+        self.batch_norm_decay = batch_norm_decay
+        self.weight_decay = weight_decay
+        self.compute_dtype = compute_dtype
+
+    def init(self, generator: torch.Generator,
+             device: torch.device = torch.device("cpu")
+             ) -> Dict[str, Params]:
+        return init_yolov3(generator, self.num_classes, device=device)
+
+    def forward(self, variables: Dict[str, Params], images: torch.Tensor,
+                train: bool = False, group=None):
+        return yolov3_forward(variables, images, train=train,
+                              compute_dtype=self.compute_dtype,
+                              bn_momentum=self.batch_norm_decay, group=group)
+
+    def predict(self, feature_maps, img_size: Tuple[int, int]):
+        from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
+        return predict_boxes(feature_maps, self.anchors, self.num_classes,
+                             img_size)
+
+    def compute_loss(self, feature_maps, y_true, img_size: Tuple[int, int]):
+        from yolov3_tensorflow_tpu_torch.ops.losses import compute_loss
+        return compute_loss(
+            feature_maps, y_true, self.anchors, self.num_classes, img_size,
+            use_label_smooth=self.use_label_smooth,
+            use_focal_loss=self.use_focal_loss)

@@ -11,6 +11,19 @@ def _at_least_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(x, x.new_zeros(()))
 
 
+def xywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) -> (x0, y0, x1, y1) on the last axis."""
+    center, size = boxes[..., 0:2], boxes[..., 2:4]
+    half = size * 0.5
+    return torch.cat([center - half, center + half], dim=-1)
+
+
+def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    """(x0, y0, x1, y1) -> (cx, cy, w, h) on the last axis."""
+    mins, maxs = boxes[..., 0:2], boxes[..., 2:4]
+    return torch.cat([(mins + maxs) * 0.5, maxs - mins], dim=-1)
+
+
 def iou_xywh(pred_boxes: torch.Tensor, true_boxes: torch.Tensor,
              eps: float = 1e-10) -> torch.Tensor:
     """Broadcast IoU between center-format boxes: pred_boxes [..., 4]

@@ -7,7 +7,8 @@ the device, and returns an `nn.Module` whose forward runs the whole chain
 on the device: the BN-folded Darknet-53 + FPN, then one of three
 postprocesses (see `build_detector`), each ending in a CUDA NMS kernel on
 the GPU. `select_serving_mode` and `build_auto_detector` pick a mode,
-bf16 or int8 (ops.quantize), from a resolution and a quantization budget.
+bf16 or int8 (ops.quantize), from a resolution, a quantization budget and
+the device type.
 """
 
 from __future__ import annotations
@@ -152,6 +153,14 @@ def check_mode(mode: str) -> None:
     raise NotImplementedError(f"mode={mode!r} is not ported yet: {where}")
 
 
+def variables_on(variables, device: torch.device) -> Dict[str, dict]:
+    """The {"params", "batch_stats"} tree with every tensor on `device`."""
+    return {part: {scope: {name: {k: v.to(device) for k, v in p.items()}
+                           for name, p in tree.items()}
+                   for scope, tree in variables[part].items()}
+            for part in ("params", "batch_stats")}
+
+
 def build_detector(variables, anchors: np.ndarray, num_classes: int,
                    img_size: Tuple[int, int], *, device: torch.device,
                    max_out: int = 200, pre_topk: int = 256,
@@ -159,7 +168,8 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                    compute_dtype: torch.dtype = torch.bfloat16,
                    box_topk: int = 256, mode: str = "prefilter",
                    calibration_images=None,
-                   stem_int8_upto: int = 12) -> nn.Module:
+                   stem_int8_upto: int = 12,
+                   activation_scales=None) -> nn.Module:
     """Build the end-to-end detector on `device`.
 
     variables: this package's tree (see models.convert.from_jax_variables,
@@ -186,25 +196,26 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                   (conv_0..conv_{stem_int8_upto-1}) int8-chained
                   (ops.quantize); needs `calibration_images` (a few
                   representative images, NHWC in [0, 1]) for the
-                  activation scales. Runs in bf16 whatever compute_dtype
-                  says, as in the JAX package.
+                  activation scales, or the scales themselves
+                  (`activation_scales`, as ops.quantize.
+                  calibrate_activation_scales returns them). Runs in bf16
+                  whatever compute_dtype says, as in the JAX package.
 
     The JAX package's "split" mode raises NotImplementedError naming the
     ROADMAP item that ports it; full int8 detectors come from
     ops.quantize.build_detector_int8 (or build_auto_detector).
     """
     check_mode(mode)
-    variables = {part: {scope: {name: {k: v.to(device) for k, v in p.items()}
-                                for name, p in tree.items()}
-                        for scope, tree in variables[part].items()}
-                 for part in ("params", "batch_stats")}
+    variables = variables_on(variables, device)
     tables = decode_tables(img_size, anchors, device=device)
     if mode == "stem8":
-        if calibration_images is None:
-            raise ValueError("mode='stem8' needs calibration_images")
-        scales = calibrate_activation_scales(variables, calibration_images)
-        hp = build_stem_int8_packed(variables, scales, num_classes,
-                                    upto=stem_int8_upto)
+        if activation_scales is None:
+            if calibration_images is None:
+                raise ValueError("mode='stem8' needs calibration_images")
+            activation_scales = calibrate_activation_scales(
+                variables, calibration_images)
+        hp = build_stem_int8_packed(variables, activation_scales,
+                                    num_classes, upto=stem_int8_upto)
         return QuantizedDetector(
             yolov3_forward_stem_int8_packed, hp, tables, anchors,
             num_classes, img_size, post="packed", max_out=max_out,
@@ -228,36 +239,66 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
 
 
 # --------------------------------------------------------------------------
-# Resolution-aware serving-mode selection
+# Resolution-aware serving-mode selection, per device type
 # --------------------------------------------------------------------------
-# The JAX package's policy, unchanged. Its boundary is a TPU measurement:
-# on a TPU v5e full int8 won at 416^2 and 608^2 and lost to bf16 at
-# 896x1344 (yolov3_tensorflow_tpu/ops/postprocess.py, docs/BENCHMARKS.md),
-# so full int8 is picked up to 700*700 pixels. The H100's own table of
-# these modes at those sizes is in PERF.md (chip_smoke.py phase 14);
-# re-deriving the policy from it is queued work (ROADMAP).
+# On the CPU: the JAX package's policy, unchanged. Its boundary is a TPU
+# measurement: on a TPU v5e full int8 won at 416^2 and 608^2 and lost to
+# bf16 at 896x1344 (yolov3_tensorflow_tpu/ops/postprocess.py,
+# docs/BENCHMARKS.md), so full int8 is picked up to 700*700 pixels.
 _INT8_MAX_AREA = 700 * 700
+
+# On CUDA: the H100's measured table, img/s of each mode at the JAX
+# package's benched sizes and batches (416^2 at 128, 608^2 at 80, 896x1344
+# at 16), from chip_smoke.py phase 14 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md, the mode table). bf16 packed beat both int8 modes at
+# every size, so every budget serves packed there.
+_CUDA_MODE_TABLE = {
+    (416, 416): {"packed": 2947.4, "stem8": 983.5, "int8": 574.0},
+    (608, 608): {"packed": 1398.3, "stem8": 461.9, "int8": 269.9},
+    (896, 1344): {"packed": 422.1, "stem8": 140.6, "int8": 82.2},
+}
+_BUDGET_MODES = {"none": ("packed",), "hybrid": ("packed", "stem8"),
+                 "full": ("packed", "stem8", "int8")}
+SERVING_TABLES = {
+    "cpu": "the JAX package's TPU v5e table",
+    "cuda": "the NVIDIA H100 80GB HBM3 table (chip_smoke.py phase 14)",
+}
 
 
 def select_serving_mode(img_size: Tuple[int, int], *,
-                        quantize: str = "hybrid") -> str:
-    """Pick the serving mode for an inference resolution.
+                        quantize: str = "hybrid",
+                        device: torch.device = torch.device("cpu")) -> str:
+    """Pick the serving mode for an inference resolution on `device`'s
+    type: the fastest mode the budget allows, as that device type measured
+    it, so never one measured slower than bf16 packed.
 
     quantize declares how much numeric approximation the caller accepts:
-      "none"    bf16 arithmetic only             -> "packed"
-      "hybrid"  the stem-int8 hybrid             -> "stem8" at every size
-      "full"    full int8 PTQ                    -> "int8" up to
-                _INT8_MAX_AREA pixels, "stem8" beyond it
+      "none"    bf16 arithmetic only   -> "packed"
+      "hybrid"  the stem-int8 hybrid   -> on the CPU "stem8" at every
+                                          size (JAX's policy); on CUDA
+                                          the faster of packed and stem8
+      "full"    full int8 PTQ          -> on the CPU "int8" up to
+                                          _INT8_MAX_AREA pixels, "stem8"
+                                          beyond it; on CUDA the fastest
+                                          of the three
+    On CUDA the table's size nearest in area to `img_size` decides
+    (_CUDA_MODE_TABLE: packed at every size).
 
     Returns one of "packed" / "stem8" / "int8". Callers route "int8" to
     ops.quantize.build_detector_int8 and the rest to build_detector, or
     call build_auto_detector, which does both.
     """
-    if quantize not in ("none", "hybrid", "full"):
+    if quantize not in _BUDGET_MODES:
         raise ValueError(f"quantize must be none|hybrid|full, got {quantize}")
     if quantize == "none":
         return "packed"
-    if quantize == "full" and img_size[0] * img_size[1] <= _INT8_MAX_AREA:
+    area = img_size[0] * img_size[1]
+    if torch.device(device).type == "cuda":
+        size = min(_CUDA_MODE_TABLE,
+                   key=lambda hw: abs(hw[0] * hw[1] - area))
+        rates = _CUDA_MODE_TABLE[size]
+        return max(_BUDGET_MODES[quantize], key=rates.get)
+    if quantize == "full" and area <= _INT8_MAX_AREA:
         return "int8"
     return "stem8"
 
@@ -267,14 +308,15 @@ def build_auto_detector(variables, anchors: np.ndarray, num_classes: int,
                         quantize: str = "hybrid",
                         calibration_images=None,
                         **kwargs) -> nn.Module:
-    """build_detector with the serving mode picked per resolution
-    (`select_serving_mode`). stem8 and int8 need `calibration_images`;
-    without them the selection falls back to the bf16 "packed" path.
-    kwargs go to build_detector (`device` among them), or to
-    build_detector_int8 for the ones it takes."""
+    """build_detector with the serving mode picked per resolution and
+    device type (`select_serving_mode` on kwargs["device"]). stem8 and
+    int8 need `calibration_images`; without them the selection falls back
+    to the bf16 "packed" path. kwargs go to build_detector (`device` among
+    them), or to build_detector_int8 for the ones it takes."""
     if calibration_images is None:
         quantize = "none"
-    mode = select_serving_mode(img_size, quantize=quantize)
+    mode = select_serving_mode(img_size, quantize=quantize,
+                               device=kwargs["device"])
     if mode == "int8":
         accepted = ("device", "max_out", "score_thresh", "iou_thresh",
                     "box_topk")

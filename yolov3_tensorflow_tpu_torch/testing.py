@@ -7,13 +7,18 @@ their plain versions on the card). `numpy_variables` makes a
 weight tree in the JAX package's layout, and `match_detections` is the
 detection-identity check both use. Everything is made with numpy from a
 seed, so both packages and both devices see the same bits.
+`parallel_worker` is one rank of the data-parallel checks' two-process
+run, importable by a spawned process.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 from typing import Dict, List, NamedTuple
 
 import numpy as np
+import torch
 
 from yolov3_tensorflow_tpu_torch.models.yolov3 import (BACKBONE_PLAN,
                                                        _head_input_channels,
@@ -21,6 +26,11 @@ from yolov3_tensorflow_tpu_torch.models.yolov3 import (BACKBONE_PLAN,
 
 IOU_T = 0.45
 SCORE_T = 0.3
+# PyTorch's intra-op threads in a CPU test process. The test command runs
+# six processes on one machine's cores; with PyTorch's default of one thread
+# a core in each, they oversubscribe the cores and a 23 s training test
+# took 897 s. Each test file of the port sets it when imported.
+CPU_TEST_THREADS = 2
 
 
 def numpy_variables(num_classes: int, seed: int = 0) -> Dict[str, dict]:
@@ -265,3 +275,150 @@ def match_detections(src, dst, min_score: float):
             areas = (same[:, 2] - same[:, 0]) * (same[:, 3] - same[:, 1])
             found += bool((inter / (area + areas - inter) >= 0.9).any())
     return n, found
+
+
+# The data-parallel checks' training configuration (tests/test_torch_parallel
+# .py): fp32, momentum at a fixed learning rate with the per-leaf clip at
+# 100 over every leaf, as the JAX package's DP test builds its optimizer.
+DP_LR = 1e-3
+DP_CLIP = 100.0
+DP_OVERRIDES = ("model.compute_dtype=float32", "train.optimizer=momentum",
+                "train.lr_type=fixed", f"train.learning_rate_init={DP_LR}",
+                "train.use_warm_up=false", f"train.grad_clip_norm={DP_CLIP}")
+# the sharded detectors' configuration in the same checks
+SHARDED = dict(max_out=128, box_topk=64, score_thresh=SCORE_T,
+               iou_thresh=IOU_T)
+
+
+def tree_digest(*trees) -> str:
+    """sha256 of every tensor of nested dicts, in key order: equal digests
+    mean bit-equal trees."""
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        else:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for tree in trees:
+        walk(tree)
+    return h.hexdigest()
+
+
+def parallel_worker(rank: int, world: int, directory: str) -> None:
+    """One rank of a data-parallel run over gloo on the CPU, two threads.
+
+    Reads `directory`/inputs.pt ({"num_classes", "seed": the weights,
+    numpy_variables(num_classes, seed) carried across, "images",
+    "y_true": the global training batch, "reorders", "serve_images": a
+    serving batch}), joins the group through a file:// rendezvous in
+    `directory` and writes `directory`/rank{rank}.pt:
+
+    - "digest", "metrics": `tree_digest` of the new params and statistics
+      after one `make_dp_train_step` (DP_OVERRIDES) on this rank's rows,
+      and its metrics; rank 0 also writes the new "params", "batch_stats";
+    - "noise": for each of inputs["reorders"] (name -> a permutation of
+      the batch: the same step mathematically), the relative distance of
+      that step's updates to the step's, per leaf and in all;
+    - "rows", "meters": `gather_prediction_rows` and `gather_meter_sums` of
+      rank-dependent inputs, beside the local "rows_local" and
+      "meters_local" (sum, count);
+    - per sharded mode ("packed", "prefilter"): the sharded detector's
+      whole-batch output on `serve_images` (spread-head weights, SHARDED)
+      and `build_detector`'s on this rank's rows, in this process."""
+    import torch.distributed as dist
+
+    from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS, load_config
+    from yolov3_tensorflow_tpu_torch.evaluation.metrics import AverageMeter
+    from yolov3_tensorflow_tpu_torch.models.convert import (
+        from_jax_variables, spread_head)
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.parallel.data_parallel import \
+        make_dp_train_step
+    from yolov3_tensorflow_tpu_torch.parallel.mesh import (make_data_mesh,
+                                                           replicate,
+                                                           shard_batch)
+    from yolov3_tensorflow_tpu_torch.parallel.multihost import (
+        gather_meter_sums, gather_prediction_rows, initialize_distributed)
+    from yolov3_tensorflow_tpu_torch.parallel.serving import \
+        make_sharded_detector
+    from yolov3_tensorflow_tpu_torch.train.optimizers import (build_optimizer,
+                                                              flatten)
+    from yolov3_tensorflow_tpu_torch.train.schedules import fixed
+
+    torch.set_num_threads(CPU_TEST_THREADS)
+    cpu = torch.device("cpu")
+    inp = torch.load(os.path.join(directory, "inputs.pt"), weights_only=True)
+    c = inp["num_classes"]
+    initialize_distributed(f"file://{directory}/rendezvous", world, rank,
+                           device=cpu)
+    out = {}
+    try:
+        mesh = make_data_mesh(world)
+        cfg = load_config(None, DP_OVERRIDES + (f"model.num_classes={c}",)
+                          ).finalize(count_files=False)
+        opt = build_optimizer("momentum", fixed(DP_LR), grad_clip_norm=DP_CLIP)
+        v = from_jax_variables(numpy_variables(c, seed=inp["seed"]),
+                               device=cpu)
+        step = make_dp_train_step(cfg, opt, mesh)
+
+        def dp_step(order):
+            state = replicate(mesh, {"params": v["params"],
+                                     "batch_stats": v["batch_stats"],
+                                     "opt_state": opt.init(v["params"]),
+                                     "step": 0})
+            return step(state, shard_batch(mesh, inp["images"][order]),
+                        shard_batch(mesh, tuple(y[order]
+                                                for y in inp["y_true"])))
+
+        new, metrics = dp_step(torch.arange(inp["images"].shape[0]))
+        out["digest"] = tree_digest(new["params"], new["batch_stats"])
+        out["metrics"] = {k: m for k, m in metrics.items() if k != "lr"}
+        if rank == 0:
+            out.update(params=new["params"], batch_stats=new["batch_stats"])
+        # the same step on the batch reordered: its updates' distance to
+        # the step's, per leaf and in all, |u' - u| / |u| in float64
+        before = flatten(v["params"])
+        u = {p: t.double() - before[p].double()
+             for p, t in flatten(new["params"]).items()}
+        out["noise"] = {}
+        for name, order in inp["reorders"].items():
+            other = flatten(dp_step(torch.as_tensor(order))[0]["params"])
+            du = {p: other[p].double() - before[p].double() - u[p]
+                  for p in u}
+            out["noise"][name] = {
+                "leaves": {p: float(du[p].norm() / u[p].norm()) for p in u},
+                "all": float(torch.cat([d.reshape(-1) for d in du.values()])
+                             .norm() / torch.cat([x.reshape(-1) for x in
+                                                  u.values()]).norm())}
+
+        rows = [[float(100 * rank + i), 1.0 + i, 2.0, 3.5, 4.25, 0.5 + i / 64,
+                 float(i % 3)] for i in range(3 * rank + 2)]
+        meters = {k: AverageMeter() for k in ("total", "xy")}
+        for i in range(rank + 2):
+            meters["total"].update(0.1 * (rank + i + 1), 2)
+            meters["xy"].update(0.3 / (rank + i + 1), 2)
+        out["rows_local"] = rows
+        out["meters_local"] = {k: (m.sum, m.count) for k, m in meters.items()}
+        out["rows"] = gather_prediction_rows(rows)
+        gather_meter_sums(meters)
+        out["meters"] = {k: (m.sum, m.count, m.average)
+                         for k, m in meters.items()}
+
+        spread = spread_head(v, seed=0)
+        anchors = np.asarray(DEFAULT_ANCHORS, np.float32)
+        images = inp["serve_images"]
+        size = tuple(images.shape[1:3])
+        for mode in ("packed", "prefilter"):
+            sharded = make_sharded_detector(spread, anchors, c, size, mesh,
+                                            device=cpu, mode=mode, **SHARDED)
+            single = dict(SHARDED, box_topk=128, pre_topk=128) \
+                if mode == "prefilter" else SHARDED
+            alone = build_detector(spread, anchors, c, size, device=cpu,
+                                   mode=mode, **single)
+            out[mode] = {"whole": sharded(images),
+                         "slice": alone(shard_batch(mesh, images))}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

@@ -121,10 +121,12 @@ class Optimizer:
     def update(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any]
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         paths = list(grads)
+        count = int(state["count"])
+        if not paths:       # an update mask that matches no leaf, as JAX's
+            return {}, {**state, "count": count + 1}
         g = [grads[p] for p in paths]
         if self.grad_clip_norm is not None:
             g = clip_by_per_leaf_norm(g, self.grad_clip_norm)
-        count = int(state["count"])
         new_state: Dict[str, Any] = {"count": count + 1}
 
         def slot(name):

@@ -19,8 +19,15 @@ Multi-scale training needs no bucketing here: eager PyTorch runs every
 size, so the JAX trainer's cache of one compiled step per bucket
 (`_train_step_cache`) has no counterpart, and where nothing in a device
 batch carries the resolution the step takes it from the loader's
-`batch.img_size`. Data-parallel training (`train.num_data_parallel > 1`)
-is not ported yet (ROADMAP queue 1, item 11).
+`batch.img_size`.
+
+Data-parallel training (`train.num_data_parallel` ranks, one device each,
+joined by `parallel.multihost.initialize_distributed`): every rank loads
+its rows of each global batch, the batch norms sync their moments over
+the process group, the gradients are averaged by one all-reduce before
+the optimizer, and the metrics are averaged at each flush. Rank 0 alone
+writes the log, the events and the checkpoints; validation gathers every
+rank's prediction rows and loss sums, so all ranks compute the same mAP.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from yolov3_tensorflow_tpu_torch.config import Config
 from yolov3_tensorflow_tpu_torch.data.device_augment import augment_batch
@@ -48,6 +56,11 @@ from yolov3_tensorflow_tpu_torch.models.yolov3 import (init_yolov3,
 from yolov3_tensorflow_tpu_torch.ops.losses import (LOSS_TERMS, compute_loss,
                                                     l2_regularization)
 from yolov3_tensorflow_tpu_torch.ops.nms import batched_nms_auto
+from yolov3_tensorflow_tpu_torch.parallel.mesh import (make_data_mesh,
+                                                       replicate)
+from yolov3_tensorflow_tpu_torch.parallel.multihost import (
+    barrier, gather_meter_sums, gather_prediction_rows, is_primary,
+    process_count, process_index)
 from yolov3_tensorflow_tpu_torch.train.checkpoint import (CheckpointStore,
                                                           partial_restore)
 from yolov3_tensorflow_tpu_torch.train.optimizers import (Optimizer,
@@ -58,7 +71,8 @@ from yolov3_tensorflow_tpu_torch.train.optimizers import (Optimizer,
                                                           unflatten)
 from yolov3_tensorflow_tpu_torch.train.schedules import build_schedule
 from yolov3_tensorflow_tpu_torch.utils.profiling import StepTimer
-from yolov3_tensorflow_tpu_torch.utils.summary import SummaryWriter
+from yolov3_tensorflow_tpu_torch.utils.summary import (NullSummaryWriter,
+                                                       SummaryWriter)
 
 TrainState = Dict[str, Any]  # {"params", "batch_stats", "opt_state", "step"}
 
@@ -71,11 +85,21 @@ def compute_dtype_of(cfg: Config) -> torch.dtype:
 def make_train_step(cfg: Config, optimizer: Optimizer,
                     schedule: Optional[Callable[[int], float]] = None,
                     device_augment: bool = False,
-                    device_encode: bool = False) -> Callable:
+                    device_encode: bool = False, group=None) -> Callable:
     """The train step: (state, images [N, H, W, 3], y_true (3 grids)) ->
     (new state, metrics). The metrics are 0-dim device tensors ("total",
     "xy", "wh", "conf", "class", "l2") and, with a schedule, "lr" =
     schedule(new step), a Python float. The input state is not modified.
+
+    With a process `group` (JAX's `axis_name`) the step is one rank's part
+    of a data-parallel step on its own rows: sync batch norm over the
+    group, and the gradients of the live leaves, flattened in one fixed
+    order into one buffer, summed by one all-reduce and divided by the
+    group's size before the optimizer (whose per-leaf clip so sees the
+    averaged gradient, as JAX clips after its pmean). The metrics stay
+    this rank's (`parallel.data_parallel.make_dp_train_step` averages
+    them; the Trainer does at each flush). A group of one gives the
+    single-device step's bits.
 
     device_augment=True changes the images argument to the loader's
     `(staged, staged2, params)` on the device: the augmentation runs first
@@ -122,7 +146,8 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
             fmaps, new_stats = yolov3_forward(
                 {"params": params, "batch_stats": state["batch_stats"]},
                 images, train=True, compute_dtype=compute_dtype,
-                bn_momentum=m.batch_norm_decay, bn_eps=m.batch_norm_epsilon)
+                bn_momentum=m.batch_norm_decay, bn_eps=m.batch_norm_epsilon,
+                group=group)
             losses = compute_loss(
                 fmaps, y_true, anchors, m.num_classes, img_size,
                 use_label_smooth=m.use_label_smooth,
@@ -132,6 +157,16 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
             grads = (torch.autograd.grad(losses["total"] + l2,
                                          list(live.values()))
                      if live else ())
+        if group is not None and grads:
+            flat_g = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat_g, group=group)
+            flat_g /= dist.get_world_size(group)
+            # back into the gradients themselves: their memory layout (some
+            # conv kernels' are channels_last) decides the order in which
+            # the clip's norms sum, so views of the buffer would move bits
+            for g, part in zip(grads, flat_g.split([g.numel()
+                                                    for g in grads])):
+                g.copy_(part.view(g.shape))
         updates, new_opt = optimizer.update(dict(zip(live, grads)),
                                             state["opt_state"])
         new_state = {"params": apply_updates(state["params"], updates),
@@ -146,34 +181,49 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
     return train_step
 
 
-def make_eval_step(cfg: Config) -> Callable:
-    """The eval step: (state, images, y_true) -> (losses, detections) with
-    the live-BN eval forward (moving statistics), the loss, the decode and
-    the per-class NMS at `cfg.eval` (K2 on a CUDA device)."""
+def make_eval_forward(cfg: Config) -> Callable:
+    """(state, images) -> (feature maps, detections): the live-BN eval
+    forward (moving statistics), the decode and the per-class NMS at
+    `cfg.eval` (K2 on a CUDA device)."""
     anchors = np.asarray(cfg.anchors, np.float32)
     m, e = cfg.model, cfg.eval
     compute_dtype = compute_dtype_of(cfg)
 
     @torch.no_grad()
-    def eval_step(state: TrainState, images: torch.Tensor,
-                  y_true: Tuple[torch.Tensor, ...]):
-        img_size = (images.shape[1], images.shape[2])
+    def forward(state: TrainState, images: torch.Tensor):
         variables = {"params": state["params"],
                      "batch_stats": state["batch_stats"]}
         fmaps, _ = yolov3_forward(variables, images, train=False,
                                   compute_dtype=compute_dtype,
                                   bn_eps=m.batch_norm_epsilon)
-        losses = compute_loss(fmaps, y_true, anchors, m.num_classes, img_size,
-                              use_label_smooth=m.use_label_smooth,
-                              use_focal_loss=m.use_focal_loss,
-                              max_gt=cfg.data.max_boxes_per_image,
-                              box_loss=m.box_loss)
         boxes, confs, probs = predict_boxes(fmaps, anchors, m.num_classes,
-                                            img_size)
+                                            (images.shape[1], images.shape[2]))
         dets = batched_nms_auto(boxes, confs * probs, max_out=e.nms_topk,
                                 pre_topk=e.pre_nms_topk,
                                 score_thresh=e.score_threshold,
                                 iou_thresh=e.nms_threshold)
+        return fmaps, dets
+
+    return forward
+
+
+def make_eval_step(cfg: Config) -> Callable:
+    """The eval step: (state, images, y_true) -> (losses, detections):
+    `make_eval_forward` and the loss of its feature maps."""
+    anchors = np.asarray(cfg.anchors, np.float32)
+    m = cfg.model
+    forward = make_eval_forward(cfg)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, images: torch.Tensor,
+                  y_true: Tuple[torch.Tensor, ...]):
+        fmaps, dets = forward(state, images)
+        losses = compute_loss(fmaps, y_true, anchors, m.num_classes,
+                              (images.shape[1], images.shape[2]),
+                              use_label_smooth=m.use_label_smooth,
+                              use_focal_loss=m.use_focal_loss,
+                              max_gt=cfg.data.max_boxes_per_image,
+                              box_loss=m.box_loss)
         return losses, dets
 
     return eval_step
@@ -233,7 +283,12 @@ def copied_arrays(batch: Batch) -> Dict[str, np.ndarray]:
 class Trainer:
     """End-to-end training: epochs, in-train evaluation, validation mAP,
     the loss-gated periodic checkpoint, the best-mAP checkpoint and
-    auto-resume, on `device` (default: the first CUDA device)."""
+    auto-resume, on `device` (default: the first CUDA device).
+
+    With `train.num_data_parallel` > 1 the trainer is one rank of a
+    data-parallel run (see the module docstring): the process group must
+    be up (`parallel.multihost.initialize_distributed`) with that many
+    ranks, and `device` is this rank's."""
 
     def __init__(self, cfg: Config, seed: int = 0,
                  device: Optional[torch.device] = None):
@@ -242,17 +297,14 @@ class Trainer:
             raise RuntimeError("Trainer: no CUDA device is available (pass "
                                "device=torch.device('cpu') to train on the "
                                "CPU)")
-        if cfg.train.num_data_parallel > 1:
-            raise NotImplementedError(
-                f"train.num_data_parallel={cfg.train.num_data_parallel}: "
-                f"data-parallel training is not ported yet (ROADMAP queue "
-                f"1, item 11); train on one device")
+        self.mesh = make_data_mesh(cfg.train.num_data_parallel)
+        self.is_primary = is_primary()      # only rank 0 writes
         self.cfg = cfg
         self.seed = seed
         self.device = device
         # an unregistered logger: each trainer's progress file is its own
         self.log = logging.Logger("yolov3_tensorflow_tpu_torch.train")
-        if cfg.train.progress_log_path:
+        if cfg.train.progress_log_path and self.is_primary:
             os.makedirs(os.path.dirname(cfg.train.progress_log_path) or ".",
                         exist_ok=True)
             handler = logging.FileHandler(cfg.train.progress_log_path, "w")
@@ -263,7 +315,8 @@ class Trainer:
 
         self.schedule = build_schedule(cfg)
         self.store = CheckpointStore(cfg.train.save_dir)
-        self.writer = SummaryWriter(cfg.train.log_dir)
+        self.writer = (SummaryWriter(cfg.train.log_dir) if self.is_primary
+                       else NullSummaryWriter())
         self.best_map = -np.inf
         self._train_step = None  # built after params exist (freeze mask)
 
@@ -288,7 +341,8 @@ class Trainer:
         d = self.cfg.data
         self._train_step = make_train_step(
             self.cfg, self.optimizer, schedule=self.schedule,
-            device_augment=d.device_augment, device_encode=d.device_encode)
+            device_augment=d.device_augment, device_encode=d.device_encode,
+            group=self.mesh)
         self._eval_step = make_eval_step(self.cfg)
         return {"params": variables["params"],
                 "batch_stats": variables["batch_stats"],
@@ -378,6 +432,9 @@ class Trainer:
             keys = sorted(k for k in pending[0][2] if k != "lr")
             packed = torch.stack([torch.stack([m[k] for _, _, m in pending])
                                   for k in keys])
+            if self.mesh is not None:       # the ranks' mean, as JAX's pmean
+                dist.all_reduce(packed, group=self.mesh)
+                packed = packed / dist.get_world_size(self.mesh)
             host = packed.cpu().numpy()     # one copy, one wait per flush
             now = time.perf_counter()
             per_step = (now - t_prev) / len(pending)
@@ -408,7 +465,8 @@ class Trainer:
             step += 1
             pending.append((step, len(batch.image_ids), metrics))
             eval_now = (cfg.train.train_evaluation_step and step > 0
-                        and step % cfg.train.train_evaluation_step == 0)
+                        and step % cfg.train.train_evaluation_step == 0
+                        and process_count() == 1)
             if len(pending) >= flush_every or eval_now:
                 flush()
             if eval_now:
@@ -453,7 +511,10 @@ class Trainer:
     def validate(self, state: TrainState, val_loader: DataLoader,
                  epoch: int) -> Dict[str, Any]:
         """Full-dataset VOC mAP evaluation; one copy to the host per
-        batch."""
+        batch. In a multi-process run each rank evaluates its stride of the
+        batches, and the prediction rows and loss sums are all-gathered, so
+        every rank computes the same mAP (the best-checkpoint decision needs
+        no broadcast)."""
         cfg = self.cfg
         val_meters = {k: AverageMeter() for k in LOSS_TERMS}
         rows = []
@@ -464,6 +525,8 @@ class Trainer:
             for k in val_meters:
                 val_meters[k].update(float(losses_np[k]),
                                      batch.images.shape[0])
+        rows = gather_prediction_rows(rows)
+        gather_meter_sums(val_meters)
 
         gt = parse_gt_records(cfg.data.val_file,
                               cfg.data.img_size, cfg.data.letterbox_resize)
@@ -515,7 +578,12 @@ class Trainer:
                 print(f"auto-resumed from {latest} at step {state['step']}")
             elif cfg.train.restore_path:
                 state = self.restore_into(state, cfg.train.restore_path)
+        state = replicate(self.mesh, state)
 
+        # each rank loads its rows of every train batch (batch_size stays
+        # the global batch; plan, steps and multi-scale schedule are the
+        # same on every rank) and its stride of the val batches
+        rank = (process_index(), process_count())
         train_loader = DataLoader(
             cfg.data.train_file, cfg.model.num_classes, cfg.anchors,
             cfg.train.batch_size, cfg.data.img_size, mode="train",
@@ -527,6 +595,7 @@ class Trainer:
             use_color_distort=cfg.data.use_color_distort,
             num_threads=cfg.data.num_threads,
             prefetch=cfg.data.prefetch_buffer, seed=self.seed,
+            shard_within_batch=rank,
             device_augment=cfg.data.device_augment,
             staged_size=cfg.data.staged_size,
             device_encode=cfg.data.device_encode,
@@ -536,7 +605,8 @@ class Trainer:
             cfg.eval.batch_size, cfg.data.img_size, mode="val",
             letterbox=cfg.data.letterbox_resize,
             num_threads=cfg.data.num_threads,
-            prefetch=cfg.data.prefetch_buffer, seed=self.seed)
+            prefetch=cfg.data.prefetch_buffer, seed=self.seed,
+            shard_batches=rank)
 
         # after a resume, start from the epoch the restored step belongs to
         steps_per_epoch = max(1, len(train_loader))
@@ -556,8 +626,7 @@ class Trainer:
                 name = (f"model-epoch_{epoch}_step_{step}"
                         f"_loss_{self._last_epoch_loss:.4f}"
                         f"_lr_{self._last_lr:.5g}")
-                self.store.save(name, state,
-                                include_opt=cfg.train.save_optimizer)
+                self._save(name, state)
 
             # full validation + best checkpoint
             if (cfg.train.val_evaluation_epoch
@@ -571,7 +640,15 @@ class Trainer:
                             f"_mAP_{self.best_map:.4f}"
                             f"_loss_{result['val_loss']:.4f}"
                             f"_lr_{self._last_lr:.7g}")
-                    self.store.save(name, state,
-                                    include_opt=cfg.train.save_optimizer)
+                    self._save(name, state)
         self.writer.flush()
         return state
+
+    def _save(self, name: str, state: TrainState) -> None:
+        """A checkpoint, written by rank 0 alone; every rank then waits for
+        it, so none reads a half-written one on auto-resume (every rank
+        reaches each save: the gates are the same on all)."""
+        if self.is_primary:
+            self.store.save(name, state,
+                            include_opt=self.cfg.train.save_optimizer)
+        barrier()
