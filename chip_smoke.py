@@ -93,13 +93,14 @@ Phases, in order; any failure exits non-zero before the last line:
 11. entry points: a .weights file of phase 4's tree, two seeded 480x640
    BGR jpgs and a 24-frame 480x640 video (mp4v) in a temporary directory.
    cli.detect_image at 416^2 on the GPU in its default mode (prefilter:
-   one shared-candidate launch) and in --mode exact (one per-group
-   launch); rc 0, an output of the input's shape, boxes drawn.
-   cli.detect_video with --save_video true four ways: streaming prefilter
-   (the default) at frame batch 1 and 8, streaming packed at frame batch
-   8, host preprocessing at frame batch 1; rc 0, 24 frames out, one
-   shared-candidate launch per dispatch (24 or 3), each run's
-   steady-state FPS printed. Then the streaming detector
+   one shared-candidate launch), in --mode exact (one per-group launch)
+   and in --mode split (one shared-candidate launch); rc 0, an output of
+   the input's shape, boxes drawn. cli.detect_video with --save_video true
+   five ways: streaming prefilter (the default) at frame batch 1 and 8,
+   streaming packed at frame batch 8, host preprocessing at frame batch 1
+   and host preprocessing with --mode split at frame batch 8; rc 0, 24
+   frames out, one shared-candidate launch per dispatch (24 or 3), each
+   run's steady-state FPS printed. Then the streaming detector
    (ops.preprocess.build_streaming_detector) at 480x640 -> 416^2 in both
    modes: the shared-candidate kernel bit-equal to its plain version on
    the detector's own candidates (batch 8), device_letterbox on the GPU
@@ -207,7 +208,29 @@ Phases, in order; any failure exits non-zero before the last line:
    epoch and validation: rc 0 and the same mAP line on both ranks, one
    per-group launch per validation batch a rank, one best_model_
    checkpoint, logs and events from rank 0 only.
-17. prints the kernel record and the device record as JSON; the last line
+17. the split head and the space-to-depth stem, at COCO-80, 416x416, on
+   phase 4's tree (spread head) and the serving config.
+   build_detector(mode="split") in bf16 answers 3 requests at batch 8 and
+   2 at batch 128: finite outputs of the right shape, detections in every
+   image, one shared-candidate launch per request (added to the kernel
+   record's launches), and the kernel bit-equal to its plain version on
+   the last request's split candidates. In fp32 (TF32 off) the split
+   detector on the GPU finds the CPU's detections on 2 images, and the
+   prefilter mode's (the same math) on every image where no more than
+   box_topk boxes pass, at phase 7's choice of threshold. The rewritten
+   stem (space_to_depth_stem) against the original conv_0 and conv_1 on a
+   batch of 8 in fp32, max |diff| <= 1e-4, and the packed forward with
+   stem_s2d against without: the same detections. Timings: the split
+   detector and the packed one in turns at batch 8 and 128 (ms per batch,
+   img/s, device busy, idle share), the split stages at batch 128 and each
+   detection conv's 15-channel boxconf half and both halves beside the
+   packed conv, the packed forward with and without stem_s2d in turns at
+   batch 128, conv_0 + conv_1 alone in both forms with the input
+   preparation of each, each beside its bound (scripts/roofline.py:
+   conv_cost) and beside its time with cudnn.benchmark on (cuDNN's
+   algorithm chosen by timing), and conv_1's asymmetric padding as pad-and-crop
+   (layers.conv_folded_asym) against F.pad first.
+18. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -284,6 +307,8 @@ DP2_BATCH = 16                         # the two-rank step's global batch
 DP2_TIMED = 3                          # two-rank steps timed
 SHARD_BATCH = 128                      # sharded serving, 64 a rank
 DP_TRAIN_IMAGES = 64                   # cli.train --num_processes 2
+SPLIT_REQUESTS = (8, 8, 8, 128, 128)   # the split detector's requests
+S2D_ATOL = 1e-4                        # the s2d stem against the plain one
 
 
 def fail(msg: str) -> None:
@@ -324,18 +349,21 @@ def call_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(kernel, plain, kernel_iters: int, plain_iters: int):
+def in_turns(kernel, plain, kernel_iters: int, plain_iters: int,
+             timer=None):
     """Kernel and plain version timed twice each on the device alone
-    (utils.profiling.cuda_ms), in turns (plain, kernel, kernel, plain).
-    Returns (kernel ms, plain ms, kernel runs, plain runs)."""
+    (utils.profiling.cuda_ms, or `timer`: call_ms for whole detectors), in
+    turns (plain, kernel, kernel, plain). Returns (kernel ms, plain ms,
+    kernel runs, plain runs)."""
     from yolov3_tensorflow_tpu_torch.utils.profiling import cuda_ms
+    timer = timer or cuda_ms
     kernel(), plain()
     runs = {"kernel": [], "plain": []}
     for name, fn, iters in (("plain", plain, plain_iters),
                             ("kernel", kernel, kernel_iters),
                             ("kernel", kernel, kernel_iters),
                             ("plain", plain, plain_iters)):
-        runs[name].append(cuda_ms(fn, iters))
+        runs[name].append(timer(fn, iters))
     return (sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2, runs["kernel"],
             runs["plain"])
 
@@ -691,7 +719,8 @@ def cli_phase(dev: torch.device, card: str, variables: dict,
         common = ["--restore_path", str(weights), "--device", str(dev),
                   "--new_size", str(SIZE), str(SIZE)]
         for mode, image, kernel in (("prefilter", images[0], "nms_shared"),
-                                    ("exact", images[1], "nms")):
+                                    ("exact", images[1], "nms"),
+                                    ("split", images[0], "nms_shared")):
             out = tmp / f"out_{mode}.jpg"
             argv = [str(image), *common, "--output", str(out)]
             if mode != "prefilter":          # prefilter is the default
@@ -721,7 +750,10 @@ def cli_phase(dev: torch.device, card: str, variables: dict,
                 ("streaming packed, frame batch 8",
                  ["--mode", "packed", "--frame_batch", "8"], CLI_FRAMES // 8),
                 ("host preprocessing, prefilter, frame batch 1",
-                 ["--device_preprocess", "false"], CLI_FRAMES))
+                 ["--device_preprocess", "false"], CLI_FRAMES),
+                ("host preprocessing, split, frame batch 8",
+                 ["--mode", "split", "--device_preprocess", "false",
+                  "--frame_batch", "8"], CLI_FRAMES // 8))
         for i, (name, extra, dispatches) in enumerate(runs):
             out = tmp / f"out{i}.mp4"
             argv = [str(video), *common, "--save_video", "true", "--output",
@@ -2582,6 +2614,330 @@ def dp_phase(dev: torch.device, card: str, tmp: Path, anchors: np.ndarray,
     dp_cli_train(dev, card, tmp)
 
 
+def split_requests(dev: torch.device, variables: dict, anchors: np.ndarray,
+                   launches: dict, max_err: dict) -> dict:
+    """Phase 17, part 1: build_detector(mode="split") in bf16 answers
+    SPLIT_REQUESTS with one shared-candidate launch each, and the kernel
+    equals its plain version on the last request's candidates. Adds the
+    launches to the record's. Returns the detector and the requests."""
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        split_candidates, yolov3_forward_split)
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+
+    det = build_detector(variables, anchors, C, (SIZE, SIZE), device=dev,
+                         compute_dtype=torch.bfloat16, mode="split",
+                         **SERVING)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    batches = [torch.rand((b, SIZE, SIZE, 3), generator=gen, device=dev)
+               for b in SPLIT_REQUESTS]
+    torch.cuda.synchronize()
+    nms_cuda.nms_keep_mask_shared.launches = 0
+    nms_cuda.nms_keep_mask.launches = 0
+    t0 = time.perf_counter()
+    results = [det(images) for images in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = nms_cuda.nms_keep_mask_shared.launches
+    print(f"split: served {len(SPLIT_REQUESTS)} requests "
+          f"({sum(SPLIT_REQUESTS)} images) in {wall:.3f} s wall, first calls "
+          f"included; nms_shared launches {k1}, nms launches "
+          f"{nms_cuda.nms_keep_mask.launches}")
+    check(k1 == len(SPLIT_REQUESTS) and nms_cuda.nms_keep_mask.launches == 0,
+          f"split: nms_shared launched {k1} times for "
+          f"{len(SPLIT_REQUESTS)} requests")
+    launches["nms_shared"] += k1
+    check_requests(results, SPLIT_REQUESTS, SERVING["max_out"], "split")
+
+    st, it = SERVING["score_thresh"], SERVING["iou_thresh"]
+    with torch.inference_mode():
+        outs = yolov3_forward_split(det.split, batches[-1],
+                                    compute_dtype=torch.bfloat16)
+        boxes, scores = split_candidates(outs, C, det.tables,
+                                         SERVING["box_topk"])
+        keep = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+        want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores, st, it)
+        torch.cuda.synchronize()
+    err = float((keep.float() - want.float()).abs().max())
+    max_err["nms_shared"] = max(max_err["nms_shared"], err)
+    print(f"split candidates B={boxes.shape[0]} K={boxes.shape[1]} C={C}: "
+          f"kept {int(want.sum())} of {int((scores >= st).sum())} valid; "
+          f"kernel == plain: {err == 0.0}")
+    check(err == 0.0, "split: kernel and plain keep masks differ")
+    return {"det": det, "batches": batches}
+
+
+def split_identity(dev: torch.device, variables: dict, anchors: np.ndarray,
+                   images: torch.Tensor) -> None:
+    """Phase 17, part 2, fp32 with TF32 off: the split detector on the GPU
+    against the CPU on 2 images, and against the prefilter mode (the same
+    math, box_topk alike) on the images where no more than box_topk boxes
+    pass, at phase 7's threshold choice."""
+    from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import \
+        yolov3_forward_folded
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+
+    def build(mode, device, **kw):
+        return build_detector(variables, anchors, C, (SIZE, SIZE),
+                              device=device, compute_dtype=torch.float32,
+                              mode=mode, **dict(SERVING, **kw))
+
+    small = images[:2]
+    same_detections(detections(build("split", torch.device("cpu"))(
+                        small.cpu()), 2),
+                    detections(build("split", dev)(small), 2),
+                    SERVING["score_thresh"] + 0.02,
+                    "split fp32 GPU vs fp32 CPU")
+
+    pre = build("prefilter", dev)
+    with torch.inference_mode():
+        fmaps = yolov3_forward_folded(pre.folded, images,
+                                      compute_dtype=torch.float32)
+        _, confs, probs = predict_boxes(fmaps, anchors, C, (SIZE, SIZE))
+        best = (confs * probs).amax(dim=-1)
+    k = SERVING["box_topk"]
+    thresh, fits = None, None
+    for t in (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9):
+        passing = (best >= t).sum(dim=1)
+        print(f"split vs prefilter: boxes passing score {t:.1f} per image "
+              f"(fp32): {passing.tolist()} (box_topk {k})")
+        fits = ((passing > 0) & (passing <= k)).nonzero()[:, 0]
+        if len(fits):
+            thresh = t
+            break
+    check(thresh is not None, f"split vs prefilter: no threshold leaves an "
+                              f"image with 1..{k} passing boxes")
+    sel = images[fits]
+    same_detections(
+        detections(build("split", dev, score_thresh=thresh)(sel), len(fits)),
+        detections(build("prefilter", dev, score_thresh=thresh)(sel),
+                   len(fits)),
+        thresh, f"split vs prefilter, fp32, images {fits.tolist()} at score "
+                f"{thresh:.1f}")
+
+
+def s2d_check(dev: torch.device, variables: dict, anchors: np.ndarray,
+              images: torch.Tensor) -> None:
+    """Phase 17, part 3, fp32 with TF32 off: space_to_depth_stem's two
+    convs against the original two on a batch (max |diff| <= S2D_ATOL),
+    and yolov3_forward_packed with stem_s2d against without: the same
+    detections (SERVING's postprocess)."""
+    from yolov3_tensorflow_tpu_torch.models.layers import (conv_folded,
+                                                           conv_folded_asym,
+                                                           space_to_depth_2x)
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import (
+        channels_last_weights, fold_batch_norm, space_to_depth_stem)
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        decode_tables, pack_serving_head, postprocess_packed,
+        yolov3_forward_packed)
+
+    f32 = dict(compute_dtype=torch.float32)
+    packed = channels_last_weights(pack_serving_head(
+        fold_batch_norm(variables, dtype=torch.float32), C))
+    s2d = channels_last_weights(space_to_depth_stem(packed))
+    p0, p1 = packed["backbone"]["conv_0"], packed["backbone"]["conv_1"]
+    q0, q1 = s2d["backbone"]["conv_0"], s2d["backbone"]["conv_1"]
+    with torch.inference_mode():
+        y_ref = conv_folded(images.permute(0, 3, 1, 2), p0, **f32)
+        y_got = conv_folded(space_to_depth_2x(images).permute(0, 3, 1, 2),
+                            q0, **f32)
+        err0 = float((space_to_depth_2x(y_ref.permute(0, 2, 3, 1))
+                      - y_got.permute(0, 2, 3, 1)).abs().max())
+        z_ref = conv_folded(y_ref, p1, stride=2, **f32)
+        z_got = conv_folded_asym(y_got, q1, padding=((1, 0), (1, 0)), **f32)
+        err1 = float((z_ref - z_got).abs().max())
+        scale = float(z_ref.abs().max())
+    print(f"space_to_depth_stem fp32, batch {images.shape[0]} at {SIZE}^2: "
+          f"conv_0 max |diff| {err0:.3g}, conv_1 max |diff| {err1:.3g} "
+          f"(|conv_1| up to {scale:.3g}; limit {S2D_ATOL})")
+    check(max(err0, err1) <= S2D_ATOL, "space_to_depth_stem differs from "
+                                       "the original stem")
+
+    tables = decode_tables((SIZE, SIZE), anchors, device=dev)
+    with torch.inference_mode():
+        dets = [postprocess_packed(yolov3_forward_packed(
+                    tree, images, stem_s2d=flag, out_dtype=torch.float32,
+                    **f32), None, C, (SIZE, SIZE), tables=tables, **SERVING)
+                for tree, flag in ((packed, False), (s2d, True))]
+    n = images.shape[0]
+    same_detections(detections(dets[0], n), detections(dets[1], n),
+                    SERVING["score_thresh"] + 0.02,
+                    "packed fp32 stem_s2d vs the plain stem")
+
+
+def split_timings(dev: torch.device, card: str, variables: dict,
+                  anchors: np.ndarray, det, batches: list) -> None:
+    """Phase 17, part 4: the split detector beside the packed one in turns
+    at batch 8 and 128 (ms per batch with host gaps, img/s, device busy,
+    idle share); its stages at batch 128 with each detection conv's
+    boxconf and cls halves beside the packed conv; the packed forward with
+    and without stem_s2d in turns; conv_0 + conv_1 alone in both forms,
+    the input preparation of each, and conv_1's two asymmetric-padding
+    forms, each beside its bound."""
+    import torch.nn.functional as F
+
+    from yolov3_tensorflow_tpu_torch.models.layers import (conv2d,
+                                                           conv_folded,
+                                                           conv_folded_asym,
+                                                           leaky_relu,
+                                                           space_to_depth_2x)
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import (
+        channels_last_weights, folded_body, space_to_depth_stem)
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        apply_packed_output_conv, apply_split_output_conv, split_candidates,
+        yolov3_forward_packed, yolov3_forward_split)
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.scripts.roofline import (conv_cost,
+                                                              kernel_bound)
+    from yolov3_tensorflow_tpu_torch.utils.profiling import (cuda_ms,
+                                                             device_busy_ms)
+
+    packed = build_detector(variables, anchors, C, (SIZE, SIZE), device=dev,
+                            compute_dtype=torch.bfloat16, mode="packed",
+                            **SERVING)
+    for images in (batches[0], batches[-1]):
+        b = images.shape[0]
+        iters = 30 if b == 8 else 10
+        for _ in range(2):
+            packed(images), det(images)
+        s_ms, p_ms, s_runs, p_runs = in_turns(
+            lambda: det(images), lambda: packed(images), iters, iters,
+            timer=call_ms)
+        p_busy = device_busy_ms(lambda: packed(images), 5)
+        s_busy = device_busy_ms(lambda: det(images), 5)
+        print(f"split detector batch {b}: {s_ms:.3f} ms/batch (runs "
+              f"{s_runs[0]:.3f}, {s_runs[1]:.3f}), {b * 1000.0 / s_ms:.1f} "
+              f"img/s, device busy {s_busy:.3f} ms, idle share "
+              f"{max(0.0, 1 - s_busy / s_ms):.3f}; packed in turns "
+              f"{p_ms:.3f} ms/batch (runs {p_runs[0]:.3f}, {p_runs[1]:.3f}), "
+              f"{b * 1000.0 / p_ms:.1f} img/s, busy {p_busy:.3f} ms, idle "
+              f"share {max(0.0, 1 - p_busy / p_ms):.3f}; split / packed "
+              f"{s_ms / p_ms:.4f} [{card}]")
+
+    images = batches[-1]
+    b = images.shape[0]
+    bf = dict(compute_dtype=torch.bfloat16)
+    with torch.inference_mode():
+        fwd_ms = call_ms(lambda: yolov3_forward_split(det.split, images,
+                                                      **bf), 10)
+        outs = yolov3_forward_split(det.split, images, **bf)
+        cand_ms = call_ms(lambda: split_candidates(
+            outs, C, det.tables, SERVING["box_topk"]), 20)
+        boxes, scores = split_candidates(outs, C, det.tables,
+                                         SERVING["box_topk"])
+        nms_ms = call_ms(lambda: nms_cuda.batched_nms_shared(
+            boxes, scores, max_out=SERVING["max_out"],
+            score_thresh=SERVING["score_thresh"],
+            iou_thresh=SERVING["iou_thresh"]), 20)
+        print(f"split stages at batch {b}: forward {fwd_ms:.3f} ms, "
+              f"prefilter+decode {cand_ms:.3f} ms, batched_nms_shared "
+              f"{nms_ms:.3f} ms [{card}]")
+        heads = {}
+        folded_body(det.split, images,
+                    lambda i, x: heads.setdefault(i, x), **bf)
+        for i, x in sorted(heads.items()):
+            p = det.split["head"][f"conv_{i}"]
+            q = packed.packed["head"][f"conv_{i}"]
+            bc_ms = cuda_ms(lambda: conv2d(x, p["boxconf"]["w"]).float()
+                            + p["boxconf"]["b"].view(1, -1, 1, 1), 20)
+            both_ms = cuda_ms(lambda: apply_split_output_conv(p, x), 20)
+            pk_ms = cuda_ms(lambda: apply_packed_output_conv(q, x), 20)
+            print(f"split head conv_{i} at {x.shape[2]}^2 (cin "
+                  f"{x.shape[1]}): boxconf (15 ch) {bc_ms:.4f} ms, boxconf "
+                  f"+ cls (384 ch) {both_ms:.4f} ms; packed conv (384 ch) "
+                  f"{pk_ms:.4f} ms [{card}]")
+        del heads, outs
+
+    tree = channels_last_weights(space_to_depth_stem(packed.packed))
+    with torch.inference_mode():
+        s2d_ms, plain_ms, sr, pr = in_turns(
+            lambda: yolov3_forward_packed(tree, images, stem_s2d=True, **bf),
+            lambda: yolov3_forward_packed(packed.packed, images, **bf),
+            10, 10, timer=call_ms)
+    print(f"packed forward batch {b}: plain stem {plain_ms:.3f} ms (runs "
+          f"{pr[0]:.3f}, {pr[1]:.3f}), stem_s2d {s2d_ms:.3f} ms (runs "
+          f"{sr[0]:.3f}, {sr[1]:.3f}); s2d / plain {s2d_ms / plain_ms:.4f} "
+          f"[{card}]")
+
+    p0, p1 = packed.packed["backbone"]["conv_0"], \
+        packed.packed["backbone"]["conv_1"]
+    q0, q1 = tree["backbone"]["conv_0"], tree["backbone"]["conv_1"]
+    pad = ((1, 0), (1, 0))
+    plain_cost = [conv_cost(SIZE, SIZE, 3, 32, 3, 1, b),
+                  conv_cost(SIZE, SIZE, 32, 64, 3, 2, b)]
+    s2d_cost = [conv_cost(SIZE // 2, SIZE // 2, 12, 128, 3, 1, b),
+                conv_cost(SIZE // 2, SIZE // 2, 128, 64, 2, 1, b)]
+    with torch.inference_mode():
+        x_plain = images.to(torch.bfloat16).permute(0, 3, 1, 2)
+        x_s2d = space_to_depth_2x(images, dtype=torch.bfloat16
+                                  ).permute(0, 3, 1, 2)
+        y_plain = conv_folded(x_plain, p0, **bf)
+        y_s2d = conv_folded(x_s2d, q0, **bf)
+        prep = in_turns(
+            lambda: space_to_depth_2x(images, dtype=torch.bfloat16),
+            lambda: images.to(torch.bfloat16), 20, 20)
+        print(f"stem input at batch {b}: fp32 -> bf16 cast {prep[1]:.4f} ms, "
+              f"space_to_depth_2x with the cast {prep[0]:.4f} ms; bound "
+              f"{kernel_bound(0, 6 * b * SIZE * SIZE * 3, 'bf16')[0]:.4f} ms "
+              f"each [{card}]")
+        rows = (
+            ("conv_0", lambda: conv_folded(x_plain, p0, **bf),
+             plain_cost[0]),
+            ("conv_0 s2d", lambda: conv_folded(x_s2d, q0, **bf), s2d_cost[0]),
+            ("conv_1", lambda: conv_folded(y_plain, p1, stride=2, **bf),
+             plain_cost[1]),
+            ("conv_1 s2d", lambda: conv_folded_asym(y_s2d, q1, padding=pad,
+                                                    **bf), s2d_cost[1]),
+            ("conv_0+conv_1", lambda: conv_folded(conv_folded(
+                x_plain, p0, **bf), p1, stride=2, **bf),
+             [sum(v) for v in zip(*plain_cost)]),
+            ("conv_0+conv_1 s2d", lambda: conv_folded_asym(conv_folded(
+                x_s2d, q0, **bf), q1, padding=pad, **bf),
+             [sum(v) for v in zip(*s2d_cost)]))
+        for name, fn, (flops, bytes_) in rows:
+            ms = cuda_ms(fn, 10)
+            # the same convs with cuDNN's algorithm chosen by timing, not
+            # by its heuristics (the port's setting)
+            torch.backends.cudnn.benchmark = True
+            try:
+                tuned_ms = cuda_ms(fn, 10)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            bound, by = kernel_bound(flops, bytes_, "bf16")
+            print(f"stem {name} at batch {b}: {ms:.4f} ms ({tuned_ms:.4f} ms "
+                  f"with cudnn.benchmark), bound {bound:.4f} ms ({by}: "
+                  f"{flops / 1e9:.1f} GFLOP, {bytes_ / 1e9:.3f} GB), "
+                  f"{bound / ms * 100:.1f}% [{card}]")
+
+        # conv_1's asymmetric padding: pad 1 and crop (conv_folded_asym)
+        # against F.pad first
+        def pad_first():
+            y = F.conv2d(F.pad(y_s2d, (1, 0, 1, 0)), q1["w"])
+            return leaky_relu(y + q1["b"].to(y.dtype).view(1, -1, 1, 1))
+
+        crop_ms, pad_ms, _, _ = in_turns(
+            lambda: conv_folded_asym(y_s2d, q1, padding=pad, **bf),
+            pad_first, 10, 10)
+        diff = float((conv_folded_asym(y_s2d, q1, padding=pad, **bf).float()
+                      - pad_first().float()).abs().max())
+        print(f"conv_1 s2d padding at batch {b}: pad 1 and crop "
+              f"{crop_ms:.4f} ms, F.pad first {pad_ms:.4f} ms; max |diff| "
+              f"{diff:.3g} [{card}]")
+
+
+def split_phase(dev: torch.device, card: str, variables: dict,
+                anchors: np.ndarray, launches: dict, max_err: dict) -> None:
+    """Phase 17: the split head and the space-to-depth stem (see the module
+    docstring)."""
+    served = split_requests(dev, variables, anchors, launches, max_err)
+    split_identity(dev, variables, anchors, served["batches"][0])
+    s2d_check(dev, variables, anchors, served["batches"][0])
+    split_timings(dev, card, variables, anchors, served["det"],
+                  served["batches"])
+
+
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2980,7 +3336,13 @@ def main() -> int:
         print(f"data parallelism: {time.perf_counter() - t0:.1f} s wall")
         check_no_jax()
 
-    # ---- 17. records -----------------------------------------------------
+    # ---- 17. the split head and the space-to-depth stem ------------------
+    t0 = time.perf_counter()
+    split_phase(dev, card, variables, anchors, launches, max_err)
+    print(f"split head and s2d stem: {time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
+
+    # ---- 18. records -----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],

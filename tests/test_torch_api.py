@@ -20,6 +20,7 @@ against the JAX package's, on the CPU.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from yolov3_tensorflow_tpu.models import YoloV3 as JaxYoloV3
@@ -28,7 +29,8 @@ from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
 from yolov3_tensorflow_tpu_torch.data.encoder import encode_labels
 from yolov3_tensorflow_tpu_torch.models import YoloV3
 from yolov3_tensorflow_tpu_torch.models.convert import from_jax_variables
-from yolov3_tensorflow_tpu_torch.models.yolov3 import yolov3_forward
+from yolov3_tensorflow_tpu_torch.models.yolov3 import (init_yolov3,
+                                                       yolov3_forward)
 from yolov3_tensorflow_tpu_torch.ops import boxes as tboxes
 from yolov3_tensorflow_tpu_torch.testing import (CPU_TEST_THREADS,
                                                  numpy_variables)
@@ -108,6 +110,25 @@ def test_yolov3_wrapper_matches_jax():
     assert set(losses) == set(want[4])
     for k in losses:
         close(float(losses[k]), float(want[4][k]), f"loss {k}")
+
+
+def test_yolov3_init_needs_a_device():
+    """`YoloV3.init` takes the device as a required keyword, as every
+    build function of the port does: without one it raises TypeError
+    instead of building the weights on the CPU; with one they land there,
+    drawn as `init_yolov3` draws them."""
+    model = YoloV3(C, ANCHORS)
+    with pytest.raises(TypeError, match="device"):
+        model.init(torch.Generator().manual_seed(0))
+    got = model.init(torch.Generator().manual_seed(0),
+                     device=torch.device("cpu"))
+    want = init_yolov3(torch.Generator().manual_seed(0), C,
+                       device=torch.device("cpu"))
+    for scope, tree in want["params"].items():
+        for name, p in tree.items():
+            for k, v in p.items():
+                assert torch.equal(got["params"][scope][name][k], v)
+    assert got["params"]["head"]["conv_6"]["w"].shape[0] == 3 * (5 + C)
 
 
 def test_box_format_helpers_match_jax():

@@ -135,7 +135,7 @@ def _same_detections(port, jax, min_detections):
     assert found_p == n_p, f"port adds {n_p - found_p} of {n_p} detections"
 
 
-@pytest.mark.parametrize("mode", ["prefilter", "exact", "packed"])
+@pytest.mark.parametrize("mode", ["prefilter", "exact", "packed", "split"])
 def test_detect_image_matches_jax(mode, weights, fp32, monkeypatch,
                                   tmp_path):
     image = str(ASSETS / "demo_data" / "synth_shapes_1.jpg")
@@ -188,19 +188,29 @@ def test_checkpoint_directory_raises(weights, tmp_path):
                          "--class_name_path", NAMES])
 
 
-@pytest.mark.parametrize("mode,item", [("split", "item 12")])
-def test_unported_modes_raise(mode, item, weights):
-    with pytest.raises(NotImplementedError, match=item):
-        port_image.main([str(ASSETS / "demo_data" / "synth_shapes_1.jpg"),
-                         "--restore_path", weights, "--device", "cpu",
-                         "--class_name_path", NAMES, "--mode", mode])
-
-
-def test_video_split_mode_raises(weights, video):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_video.main([video, "--restore_path", weights, "--device", "cpu",
-                         "--class_name_path", NAMES, "--mode", "split",
-                         "--device_preprocess", "false"])
+@pytest.mark.parametrize("device_preprocess", ["false", "true"])
+def test_detect_video_split_matches_jax(device_preprocess, weights, video,
+                                        fp32, monkeypatch, tmp_path):
+    """--mode split: with host preprocessing both packages build the split
+    detector; with device preprocessing both stream in prefilter mode (the
+    JAX CLI's rule)."""
+    args = [video, "--restore_path", weights, "--class_name_path", NAMES,
+            "--new_size", "96", "96", "--frame_batch", "4", "--mode",
+            "split", "--device_preprocess", device_preprocess]
+    built = []
+    pdet = port_video.build_detector
+    monkeypatch.setattr(port_video, "build_detector",
+                        lambda *a, **k: built.append(k["mode"]) or
+                        pdet(*a, **k))
+    port = _record(monkeypatch, port_video)
+    jax = _record(monkeypatch, jax_video)
+    out = str(tmp_path / "port.mp4")
+    assert port_video.main(args + ["--device", "cpu", "--save_video", "true",
+                                   "--output", out]) == 0
+    assert jax_video.main(args) == 0
+    assert built == (["split"] if device_preprocess == "false" else [])
+    assert len(port) == len(jax) == FRAMES
+    _same_detections(port, jax, min_detections=10)
 
 
 @pytest.mark.parametrize("cli", ["image", "video"])

@@ -54,17 +54,29 @@ SIZES = [(320, 320), (416, 416), (608, 608), (608, 800), (700, 700),
 @pytest.mark.parametrize("quantize", ["none", "hybrid", "full"])
 def test_select_serving_mode_matches_jax(quantize):
     for size in SIZES:
-        assert tpp.select_serving_mode(size, quantize=quantize) == \
+        assert tpp.select_serving_mode(size, quantize=quantize,
+                                       device=CPU) == \
             jpp.select_serving_mode(size, quantize=quantize), size
     assert tpp._INT8_MAX_AREA == jpp._INT8_MAX_AREA
 
 
 def test_select_serving_mode_rejects_unknown_budget():
     with pytest.raises(ValueError, match="none|hybrid|full"):
-        tpp.select_serving_mode((416, 416), quantize="fast")
+        tpp.select_serving_mode((416, 416), quantize="fast", device=CPU)
 
 
 CUDA = torch.device("cuda")       # a device type only: nothing runs there
+
+
+def test_select_serving_mode_needs_a_device():
+    """The device is a required keyword: a caller who leaves it out gets
+    a TypeError, not the CPU's (JAX's TPU) policy on a CUDA card."""
+    with pytest.raises(TypeError, match="device"):
+        tpp.select_serving_mode((416, 416), quantize="full")
+    assert tpp.select_serving_mode((416, 416), quantize="full",
+                                   device=CPU) == "int8"
+    assert tpp.select_serving_mode((416, 416), quantize="full",
+                                   device=CUDA) == "packed"
 
 
 @pytest.mark.parametrize("quantize", ["none", "hybrid", "full"])

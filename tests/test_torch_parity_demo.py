@@ -114,6 +114,27 @@ def test_parity_demo_harness_synthetic(tmp_path, weights, new_size,
     assert entry["agreement"] >= agreement_min
 
 
+def test_parity_demo_split_serving_mode(tmp_path, weights):
+    """--serving_mode split runs the harness through the split detector
+    and passes its agreement check against the exact path."""
+    names = tmp_path / "names.txt"
+    names.write_text("a\nb\nc\n")
+    out_dir = str(tmp_path / "out")
+    rc = main(["--weights", str(weights),
+               "--images", demo_image(str(tmp_path / "demo.jpg")),
+               "--out_dir", out_dir, "--new_size", "96", "96",
+               "--class_name_path", str(names), "--score_thresh", "0.2",
+               "--max_boxes", "8", "--expect", "off", "--agreement_min",
+               "0.7", "--serving_mode", "split", "--device", "cpu"])
+    assert rc == 0
+    with open(os.path.join(out_dir, "parity_summary.json")) as f:
+        summary = json.load(f)
+    assert summary["ok"] is True
+    assert summary["settings"]["serving_mode"] == "split"
+    assert summary["images"]["demo"]["n_serving"] >= 1
+    assert summary["images"]["demo"]["agreement"] >= 0.7
+
+
 def test_parity_demo_fails_a_missing_class(tmp_path, weights, capsys):
     """--expect coco fails (exit code 1) when a demo image lacks its known
     COCO classes (here the names file calls the weights' classes person,

@@ -19,12 +19,13 @@ held, and how tightly:
   `_concat_split_conv` bit-equal;
 - the int8 `upsample_nearest_2x`, `stem_int8_safe_boundaries`;
 - the whole forwards (`yolov3_forward_int8`, `_int8_packed`,
-  `_int8_chained` with both heads, `_stem_int8_packed` at upto 9 and 12)
-  and the number of int8 GEMMs each runs (72, 72, 74, 74, 9, 12). In the
-  int8 forwards every int8 conv is bit-equal; only the bf16 detection
-  convs sum in another order, so each output is within one bf16 step of
-  JAX's and equal on >= 99.9% of them (one packed value of 3072 differed
-  by one step here). The stem8 forward's bf16 remainder (60+ bf16 convs)
+  `_int8_split`, `_int8_chained` with both heads, `_stem_int8_packed` at
+  upto 9 and 12) and the number of int8 GEMMs each runs (72, 72, 72, 74,
+  74, 9, 12). In the int8 forwards every int8 conv is bit-equal; only the
+  bf16 detection convs sum in another order, so each output (the split
+  head's boxconf and class logits alike) is within one bf16 step of JAX's
+  and equal on >= 99.9% of them (one packed value of 3072 differed by
+  one step here). The stem8 forward's bf16 remainder (60+ bf16 convs)
   drifts more: each output within two bf16 steps of the larger of the two
   values and 0.5 (at most 2^-7 apart at logits of magnitude 1..2 here),
   and equal on >= 90% (95% here).
@@ -262,40 +263,52 @@ def test_stem_boundaries_match_jax(setup):
         tq.build_stem_int8_packed(tvars, scales, C, upto=10)
 
 
-# name -> (quantizer or stem upto, forward, packed head, int8 GEMMs)
+# name -> (quantizer or stem upto, forward, head rewrite, int8 GEMMs)
 def _forwards():
     return {
-        "int8": ("quantize_model", "yolov3_forward_int8", False, 72),
-        "int8_packed": ("quantize_model", "yolov3_forward_int8_packed", True,
-                        72),
+        "int8": ("quantize_model", "yolov3_forward_int8", None, 72),
+        "int8_packed": ("quantize_model", "yolov3_forward_int8_packed",
+                        "pack_serving_head", 72),
+        "int8_split": ("quantize_model", "yolov3_forward_int8_split",
+                       "split_serving_head", 72),
         "chained_packed": ("quantize_model_chained",
-                           "yolov3_forward_int8_chained", True, 74),
+                           "yolov3_forward_int8_chained",
+                           "pack_serving_head", 74),
         "chained_plain": ("quantize_model_chained",
-                          "yolov3_forward_int8_chained", False, 74),
-        "stem8_9": (9, "yolov3_forward_stem_int8_packed", True, 9),
-        "stem8_12": (12, "yolov3_forward_stem_int8_packed", True, 12),
+                          "yolov3_forward_int8_chained", None, 74),
+        "stem8_9": (9, "yolov3_forward_stem_int8_packed", None, 9),
+        "stem8_12": (12, "yolov3_forward_stem_int8_packed", None, 12),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_forwards()))
 def test_forward_matches_jax(name, setup):
     jvars, tvars, images, scales = setup
-    build, fwd, packed, gemms = _forwards()[name]
+    build, fwd, head, gemms = _forwards()[name]
     if isinstance(build, int):
         jp = jq.build_stem_int8_packed(jvars, scales, C, upto=build)
         tp = tq.build_stem_int8_packed(tvars, scales, C, upto=build)
     else:
         jp, tp = getattr(jq, build)(jvars, scales), \
             getattr(tq, build)(tvars, scales)
-        if packed:
-            jp, tp = jfp.pack_serving_head(jp, C), tfp.pack_serving_head(tp, C)
-    kw = {"head": "packed" if packed else "plain"} \
+        if head is not None:
+            jp, tp = getattr(jfp, head)(jp, C), getattr(tfp, head)(tp, C)
+    kw = {"head": "plain" if head is None else "packed"} \
         if name.startswith("chained") else {}
     want = getattr(jq, fwd)(jp, jnp.asarray(images), **kw)
     before = I8.int8_gemm.calls
     got = getattr(tq, fwd)(tp, torch.from_numpy(images), **kw)
     assert I8.int8_gemm.calls - before == gemms
     assert len(got) == len(want) == 3
+    if name == "int8_split":          # (boxconf fp32, cls bf16) pairs
+        assert [(b.dtype, c.dtype) for b, c in got] == \
+            [(torch.float32, torch.bfloat16)] * 3
+        # the equal share over all six outputs: a boxconf map at 2x2
+        # holds only 120 values
+        got = [np.concatenate([_bits(t, nchw=False).ravel()
+                               for pair in got for t in pair])]
+        want = [np.concatenate([_bits(t).ravel()
+                                for pair in want for t in pair])]
     for g, w in zip(got, want):
         g, w = _bits(g, nchw=False), _bits(w)
         assert g.shape == w.shape

@@ -184,13 +184,18 @@ def test_build_detector_default_is_prefilter_as_in_jax(spread_vars):
 
 
 def test_build_detector_defers_other_modes(spread_vars):
-    """"split" is not ported (NotImplementedError naming its ROADMAP item);
-    full int8 is no build_detector mode (ops.quantize.build_detector_int8
-    builds it) and an unknown mode raises ValueError; "stem8" is built
+    """"split" is built (a SplitDetector, which answers a request;
+    tests/test_torch_split_head.py holds it to JAX's); full int8 is no
+    build_detector mode (ops.quantize.build_detector_int8 builds it) and
+    an unknown mode raises ValueError; "stem8" is built
     (tests/test_torch_mode_select.py) and needs calibration images."""
     v = from_jax_variables(spread_vars, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="split")
+    det = build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="split",
+                         max_out=16, box_topk=32)
+    assert isinstance(det, tpp.SplitDetector) and not det.training
+    out = det(torch.zeros((1, 64, 64, 3)))
+    assert out["boxes"].shape == (1, C * 16, 4)
+    assert out["valid"].dtype == torch.bool
     with pytest.raises(ValueError, match="build_detector_int8"):
         build_detector(v, ANCHORS, C, (64, 64), device=CPU, mode="int8")
     with pytest.raises(ValueError):

@@ -22,8 +22,8 @@ from yolov3_tensorflow_tpu_torch.cli.common import (load_anchors,
                                                     resolve_device, str2bool)
 from yolov3_tensorflow_tpu_torch.data.augment import letterbox_resize
 from yolov3_tensorflow_tpu_torch.ops.postprocess import (
-    SERVING_TABLES, build_auto_detector, build_detector, check_mode,
-    detections_to_numpy, select_serving_mode)
+    SERVING_TABLES, build_auto_detector, build_detector, detections_to_numpy,
+    select_serving_mode)
 from yolov3_tensorflow_tpu_torch.ops.quantize import build_detector_int8
 from yolov3_tensorflow_tpu_torch.utils.viz import (get_color_table,
                                                    plot_one_box)
@@ -49,10 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
                             "stem8", "int8", "auto"],
                    help="postprocess pipeline (ops.postprocess.build_detector)"
                         ": prefilter is exact at demo thresholds; packed is "
-                        "the serving path; stem8 int8-quantizes the early "
+                        "the serving path, split the serving path with the "
+                        "split head; stem8 int8-quantizes the early "
                         "backbone, int8 the whole network (both calibrate "
                         "on the input image); auto picks by resolution and "
-                        "--quantize; split is not ported yet")
+                        "--quantize")
     p.add_argument("--quantize", type=str, default="hybrid",
                    choices=["none", "hybrid", "full"],
                    help="quantization budget for --mode auto: none (bf16 "
@@ -65,12 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", type=str, default="detection_result.jpg")
     p.add_argument("--show", action="store_true")
     return p
-
-
-def check_cli_mode(mode: str) -> None:
-    """Raise before any weights load when `mode` cannot run here."""
-    if mode not in ("auto", "int8"):
-        check_mode(mode)
 
 
 def preprocess(img_ori: np.ndarray, new_size, use_letterbox: bool):
@@ -104,7 +99,6 @@ def invert_boxes(boxes: np.ndarray, inv) -> np.ndarray:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    check_cli_mode(args.mode)
     anchors = load_anchors(args.anchor_path)
     classes = load_classes(args.class_name_path)
     num_classes = len(classes)

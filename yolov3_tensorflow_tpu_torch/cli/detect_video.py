@@ -34,7 +34,6 @@ from yolov3_tensorflow_tpu_torch.cli.common import (load_anchors,
 from yolov3_tensorflow_tpu_torch.cli.detect_image import (invert_boxes,
                                                           preprocess)
 from yolov3_tensorflow_tpu_torch.ops.postprocess import (build_detector,
-                                                         check_mode,
                                                          pack_detections,
                                                          unpack_detections)
 from yolov3_tensorflow_tpu_torch.ops.preprocess import \
@@ -67,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", type=str, default="prefilter",
                    choices=["exact", "prefilter", "split", "packed"],
                    help="postprocess pipeline; packed is the serving path "
-                        "(streaming supports prefilter/packed)")
+                        "(streaming supports prefilter/packed: the other "
+                        "modes stream in prefilter mode, as in the JAX CLI)")
     p.add_argument("--pipeline_depth", type=int, default=2,
                    help="dispatches in flight on the device; raise to hide "
                         "host<->device latency (adds that much display "
@@ -88,7 +88,6 @@ def main(argv=None) -> int:
     use_device_pre = args.device_preprocess and args.letterbox_resize
     stream_mode = args.mode if args.mode in ("prefilter", "packed") \
         else "prefilter"
-    check_mode(stream_mode if use_device_pre else args.mode)
     anchors = load_anchors(args.anchor_path)
     classes = load_classes(args.class_name_path)
     num_classes = len(classes)

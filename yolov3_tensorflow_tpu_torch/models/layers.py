@@ -17,7 +17,7 @@ JAX rounds it.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -70,6 +70,32 @@ def conv_folded(x: torch.Tensor, p: Params, *, stride: int = 1,
     return leaky_relu(y).to(compute_dtype)
 
 
+def conv_folded_asym(x: torch.Tensor, p: Params, *,
+                     padding: Tuple[Tuple[int, int], Tuple[int, int]],
+                     compute_dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """conv_folded with explicit, possibly asymmetric padding
+    ((top, bottom), (left, right)) and stride 1 (JAX `conv_folded_asym`):
+    the space-to-depth stem's 2x2 conv_1 pads top and left only
+    (models.yolov3.space_to_depth_stem).
+
+    `F.conv2d` pads symmetrically, so the conv pads every side by the
+    largest of the four and the output window the asymmetric padding
+    gives is cut out of it: for ((1, 0), (1, 0)) one extra output row and
+    column, dropped, where padding first (`F.pad`) would copy the whole
+    input. The window is a strided view; the bias add writes it out
+    dense."""
+    (top, bottom), (left, right) = padding
+    pad = max(top, bottom, left, right)
+    k_h, k_w = p["w"].shape[-2:]
+    y = F.conv2d(x.to(compute_dtype), p["w"].to(compute_dtype), padding=pad)
+    h = x.shape[2] + top + bottom - k_h + 1
+    w = x.shape[3] + left + right - k_w + 1
+    y = y[:, :, pad - top:pad - top + h, pad - left:pad - left + w]
+    y = y + _channel(p["b"].to(y.dtype))
+    return leaky_relu(y).to(compute_dtype)
+
+
 def conv_bias(x: torch.Tensor, p: Params, *,
               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Plain conv + bias, output in fp32: the 3 detection convs of the
@@ -99,6 +125,21 @@ def neck_split_folded(inter: torch.Tensor, route: torch.Tensor, p_lat: Params,
     y = (upsample_nearest_2x(ya).float() + yb.float()
          + _channel(p_first["b"].float()))
     return leaky_relu(y).to(compute_dtype)
+
+
+def space_to_depth_2x(x: torch.Tensor,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """[N, H, W, C] -> [N, H/2, W/2, 4C] (NHWC, contiguous), the channel
+    block of pixel phase (py, px) within each 2x2 cell at (py*2 + px)*C
+    (JAX `space_to_depth_2x`). `dtype` casts in the same copy: one pass
+    over the images where a cast and a relayout would take two (a cast is
+    elementwise, so the values are those of casting first)."""
+    n, h, w, c = x.shape
+    out = torch.empty((n, h // 2, w // 2, 4 * c), dtype=dtype or x.dtype,
+                      device=x.device)
+    out.view(n, h // 2, w // 2, 2, 2, c).copy_(
+        x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5))
+    return out
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

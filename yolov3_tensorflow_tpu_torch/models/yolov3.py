@@ -25,8 +25,10 @@ import torch
 from yolov3_tensorflow_tpu_torch.models.layers import (conv_bias,
                                                        conv_bn_leaky,
                                                        conv_folded,
+                                                       conv_folded_asym,
                                                        neck_split_bn_leaky,
                                                        neck_split_folded,
+                                                       space_to_depth_2x,
                                                        upsample_nearest_2x)
 
 Params = Dict[str, dict]
@@ -354,24 +356,41 @@ def fold_batch_norm(variables: Dict[str, Params],
 
 
 def channels_last_weights(tree: Params) -> Params:
-    """Store every 4-D conv kernel of a folded (or quantized) tree, packed
-    detection convs included, in channels_last memory, the layout cuDNN
-    runs fastest with channels_last activations. In place; returns the
-    tree."""
+    """Store every 4-D conv kernel of a folded (or quantized) tree, the
+    packed and split detection convs' included, in channels_last memory,
+    the layout cuDNN runs fastest with channels_last activations. In
+    place; returns the tree."""
     for convs in tree.values():
         for p in convs.values():
-            p = p.get("packed", p)
-            if "w" in p:
-                p["w"] = p["w"].contiguous(memory_format=torch.channels_last)
+            for q in (p, *(v for v in p.values() if isinstance(v, dict))):
+                if "w" in q:
+                    q["w"] = q["w"].contiguous(
+                        memory_format=torch.channels_last)
     return tree
 
 
+def nhwc(out):
+    """An NCHW head output, or a tuple of them (the split head's), as NHWC
+    views: channels_last tensors, so no copy."""
+    if isinstance(out, tuple):
+        return tuple(t.permute(0, 2, 3, 1) for t in out)
+    return out.permute(0, 2, 3, 1)
+
+
 def folded_body(folded: Params, images: torch.Tensor, out_fn, *,
-                compute_dtype: torch.dtype) -> List[torch.Tensor]:
+                compute_dtype: torch.dtype, stem_s2d: bool = False,
+                split_neck: bool = True) -> List:
     """Folded backbone + neck + head convs, with the detection convs applied
-    by `out_fn(i, x)` (i in 6, 14, 22) and every FPN junction in the split
-    form. images: [N, H, W, 3] float (NHWC). Returns the 3 head outputs,
-    strides (32, 16, 8), as NHWC views of channels_last tensors."""
+    by `out_fn(i, x)` (i in 6, 14, 22) (JAX `_serving_body`). images:
+    [N, H, W, 3] float (NHWC). Returns the 3 head outputs, strides (32, 16,
+    8), as NHWC views of channels_last tensors (`nhwc`).
+
+    stem_s2d=True takes a tree rewritten by `space_to_depth_stem` and runs
+    conv_0 and conv_1 on the space-to-depth(2) images: conv_0 as a 3x3
+    12->128 conv at half resolution, conv_1 as a 2x2 conv padded top and
+    left (`layers.conv_folded_asym`). split_neck=True (the default) takes
+    every FPN junction in the split form (`layers.neck_split_folded`),
+    False the literal upsample + concat + conv."""
 
     def bn_conv(scope: str, idx: int, x: torch.Tensor, stride: int = 1):
         return conv_folded(x, folded[scope][f"conv_{idx}"], stride=stride,
@@ -382,26 +401,117 @@ def folded_body(folded: Params, images: torch.Tensor, out_fn, *,
                                  folded["head"][f"conv_{first_idx}"],
                                  compute_dtype=compute_dtype)
 
-    x = images.permute(0, 3, 1, 2).to(compute_dtype)   # NCHW, channels_last
-    routes = _backbone_forward(lambda i, x, s: bn_conv("backbone", i, x, s), x)
+    if stem_s2d:
+        def backbone_conv(i, x, s):
+            if i == 0:              # [N, 12, H/2, W/2] -> [N, 128, H/2, W/2]
+                return bn_conv("backbone", 0, x)
+            if i == 1:              # 2x2 over cells (m-1..m, n-1..n)
+                return conv_folded_asym(x, folded["backbone"]["conv_1"],
+                                        padding=((1, 0), (1, 0)),
+                                        compute_dtype=compute_dtype)
+            return bn_conv("backbone", i, x, s)
+        x = space_to_depth_2x(images, dtype=compute_dtype)
+    else:
+        def backbone_conv(i, x, s):
+            return bn_conv("backbone", i, x, s)
+        x = images.to(compute_dtype)
+    x = x.permute(0, 3, 1, 2)                          # NCHW, channels_last
+    routes = _backbone_forward(backbone_conv, x)
     fmaps = _head_forward(lambda i, x: bn_conv("head", i, x), out_fn, routes,
-                          neck_fn)
-    return [f.permute(0, 2, 3, 1) for f in fmaps]
+                          neck_fn if split_neck else None)
+    return [nhwc(f) for f in fmaps]
 
 
 def yolov3_forward_folded(folded: Params, images: torch.Tensor, *,
-                          compute_dtype: torch.dtype = torch.bfloat16
+                          compute_dtype: torch.dtype = torch.bfloat16,
+                          stem_s2d: bool = False, split_neck: bool = True
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Inference forward with BN pre-folded (see `fold_batch_norm`) and the
-    split-neck junctions. images: [N, H, W, 3], H and W divisible by 32.
-    Returns (fmap_1, fmap_2, fmap_3), each [N, H/s, W/s, 3*(5+C)] fp32,
-    s in (32, 16, 8)."""
+    """Inference forward with BN pre-folded (see `fold_batch_norm`).
+    images: [N, H, W, 3], H and W divisible by 32. Returns (fmap_1, fmap_2,
+    fmap_3), each [N, H/s, W/s, 3*(5+C)] fp32, s in (32, 16, 8).
+
+    stem_s2d=True expects a tree rewritten by `space_to_depth_stem` and
+    runs the first two convs in space-to-depth form (the same sums,
+    reassociated). split_neck=True (the default) takes the split-neck
+    junctions, False the literal reference dataflow (see `folded_body`).
+    """
     fmaps = folded_body(
         folded, images,
         lambda i, x: conv_bias(x, folded["head"][f"conv_{i}"],
                                compute_dtype=compute_dtype),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, stem_s2d=stem_s2d,
+        split_neck=split_neck)
     return tuple(fmaps)
+
+
+def space_to_depth_stem(folded: Params) -> Params:
+    """Rewrite the folded stem convs into space-to-depth(2) equivalents
+    (JAX `space_to_depth_stem`, the same numpy arithmetic on the host):
+
+      conv_0 (3x3 s1, 3->32 at H x W) becomes 3x3 s1, 12->128 at H/2 x W/2;
+        output channel block (dy*2+dx)*32+o holds conv_0's output for pixel
+        phase (dy, dx): w0'[a, b, (py*2+px)*3+c, (dy*2+dx)*32+o]
+          = w0[u+1, v+1, c, o], u = 2(a-1)+py-dy, v = 2(b-1)+px-dx
+          (zero where u or v falls outside {-1, 0, 1});
+      conv_1 (3x3 s2, 32->64) becomes 2x2 s1, 128->64 over s2d cells
+        (m-1..m, n-1..n), padded top and left:
+          w1'[a, b, (py*2+px)*32+c, o] = w1[2(a-1)+py+1, 2(b-1)+px+1, c, o]
+
+    (indices in JAX's HWIO; the kernels are stored OIHW here). The same
+    multiply-adds, reassociated; the rest of the tree is shared, not
+    copied. Both kernels take conv_0's dtype and device, the biases fp32.
+    """
+    p0, p1 = folded["backbone"]["conv_0"], folded["backbone"]["conv_1"]
+
+    def hwio(w: torch.Tensor) -> np.ndarray:
+        return w.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
+
+    w0, w1 = hwio(p0["w"]), hwio(p1["w"])       # [3,3,3,32], [3,3,32,64]
+    b0 = p0["b"].detach().float().cpu().numpy()
+    cin0, cout0 = w0.shape[2], w0.shape[3]
+    cin1, cout1 = w1.shape[2], w1.shape[3]
+    if cin1 != cout0:
+        raise ValueError(f"conv_1 reads {cin1} channels, conv_0 writes "
+                         f"{cout0}")
+
+    w0p = np.zeros((3, 3, 4 * cin0, 4 * cout0), np.float32)
+    for a in range(3):
+        for b in range(3):
+            for py in range(2):
+                for px in range(2):
+                    for dy in range(2):
+                        for dx in range(2):
+                            u = 2 * (a - 1) + py - dy
+                            v = 2 * (b - 1) + px - dx
+                            if u < -1 or u > 1 or v < -1 or v > 1:
+                                continue
+                            w0p[a, b,
+                                (py * 2 + px) * cin0:(py * 2 + px + 1) * cin0,
+                                (dy * 2 + dx) * cout0:(dy * 2 + dx + 1) * cout0
+                                ] = w0[u + 1, v + 1]
+    w1p = np.zeros((2, 2, 4 * cout0, cout1), np.float32)
+    for a in range(2):
+        for b in range(2):
+            for py in range(2):
+                for px in range(2):
+                    u = 2 * (a - 1) + py
+                    v = 2 * (b - 1) + px
+                    if u < -1 or u > 1 or v < -1 or v > 1:
+                        continue
+                    w1p[a, b,
+                        (py * 2 + px) * cin1:(py * 2 + px + 1) * cin1, :
+                        ] = w1[u + 1, v + 1]
+
+    def oihw(w: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            w.transpose(3, 2, 0, 1))).to(p0["w"].device, p0["w"].dtype)
+
+    out = {scope: dict(v) for scope, v in folded.items()}
+    out["backbone"]["conv_0"] = {
+        "w": oihw(w0p),
+        "b": torch.from_numpy(np.tile(b0, 4)).to(p0["b"].device)}
+    out["backbone"]["conv_1"] = {"w": oihw(w1p), "b": p1["b"].float()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -426,9 +536,11 @@ class YoloV3:
         self.weight_decay = weight_decay
         self.compute_dtype = compute_dtype
 
-    def init(self, generator: torch.Generator,
-             device: torch.device = torch.device("cpu")
+    def init(self, generator: torch.Generator, *, device: torch.device
              ) -> Dict[str, Params]:
+        """The variable tree of `init_yolov3`, on `device`: required, as
+        every build function of the port takes it, so the weights land on
+        the card the caller names and never on the CPU by default."""
         return init_yolov3(generator, self.num_classes, device=device)
 
     def forward(self, variables: Dict[str, Params], images: torch.Tensor,

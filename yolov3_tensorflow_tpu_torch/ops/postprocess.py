@@ -4,11 +4,11 @@ output.
 Counterpart of `yolov3_tensorflow_tpu/ops/postprocess.py`. `build_detector`
 folds BN into the conv kernels once, moves the weights and decode tables to
 the device, and returns an `nn.Module` whose forward runs the whole chain
-on the device: the BN-folded Darknet-53 + FPN, then one of three
-postprocesses (see `build_detector`), each ending in a CUDA NMS kernel on
-the GPU. `select_serving_mode` and `build_auto_detector` pick a mode,
-bf16 or int8 (ops.quantize), from a resolution, a quantization budget and
-the device type.
+on the device: the BN-folded Darknet-53 + FPN, then one of the
+postprocesses of `build_detector`'s modes, each ending in a CUDA NMS
+kernel on the GPU. `select_serving_mode` and `build_auto_detector` pick a
+mode, bf16 or int8 (ops.quantize), from a resolution, a quantization
+budget and the device type.
 """
 
 from __future__ import annotations
@@ -25,17 +25,14 @@ from yolov3_tensorflow_tpu_torch.models.yolov3 import (channels_last_weights,
                                                        yolov3_forward_folded)
 from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
     decode_tables, pack_serving_head, postprocess_packed,
-    postprocess_prefilter, yolov3_forward_packed)
+    postprocess_prefilter, postprocess_split, split_serving_head,
+    yolov3_forward_packed, yolov3_forward_split)
 from yolov3_tensorflow_tpu_torch.ops.nms import batched_nms_auto
 from yolov3_tensorflow_tpu_torch.ops.quantize import (
     QuantizedDetector, build_detector_int8, build_stem_int8_packed,
     calibrate_activation_scales, yolov3_forward_stem_int8_packed)
 
-# build_detector modes of the JAX package that this package does not have
-# yet, with the ROADMAP item that ports each.
-_DEFERRED_MODES = {
-    "split": "ROADMAP queue 1, item 12 (split head, TPU layout experiment)",
-}
+_MODES = ("packed", "split", "exact", "prefilter", "stem8")
 
 
 def postprocess(feature_maps, anchors: np.ndarray, num_classes: int,
@@ -91,6 +88,42 @@ class PackedDetector(nn.Module):
             tables=self.tables)
 
 
+class SplitDetector(nn.Module):
+    """The "split" mode: images [B, H, W, 3] float in [0, 1] (NHWC, any
+    device) -> detections dict of [B, C*max_out, ...] on the detector's
+    device, from the split head's (boxconf, cls) outputs through
+    `postprocess_split`. Runs under torch.inference_mode()."""
+
+    def __init__(self, split: dict, tables: torch.Tensor, num_classes: int,
+                 img_size: Tuple[int, int], *, max_out: int, box_topk: int,
+                 score_thresh: float, iou_thresh: float,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.split = split
+        self.register_buffer("tables", tables)
+        self.num_classes = num_classes
+        self.img_size = (int(img_size[0]), int(img_size[1]))
+        self.max_out = max_out
+        self.box_topk = box_topk
+        self.score_thresh = score_thresh
+        self.iou_thresh = iou_thresh
+        self.compute_dtype = compute_dtype
+
+    @torch.inference_mode()
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if tuple(images.shape[1:3]) != self.img_size:
+            raise ValueError(f"detector built for {self.img_size}, got "
+                             f"images {tuple(images.shape)}")
+        images = images.to(self.tables.device, non_blocking=True)
+        outs = yolov3_forward_split(self.split, images,
+                                    compute_dtype=self.compute_dtype)
+        return postprocess_split(
+            outs, None, self.num_classes, self.img_size,
+            max_out=self.max_out, box_topk=self.box_topk,
+            score_thresh=self.score_thresh, iou_thresh=self.iou_thresh,
+            tables=self.tables)
+
+
 class FoldedDetector(nn.Module):
     """The "exact" and "prefilter" modes: images [B, H, W, 3] float in
     [0, 1] (NHWC, any device) -> detections dict of [B, C*max_out, ...] on
@@ -136,23 +169,6 @@ class FoldedDetector(nn.Module):
                            self.img_size, pre_topk=self.pre_topk, **kw)
 
 
-def check_mode(mode: str) -> None:
-    """Raise unless `build_detector` can build `mode`: NotImplementedError
-    naming the ROADMAP item for a JAX mode not ported yet, ValueError for
-    an unknown one (int8 detectors come from ops.quantize.
-    build_detector_int8 or build_auto_detector). The CLIs call it before
-    they load any weights."""
-    if mode in ("packed", "exact", "prefilter", "stem8"):
-        return
-    where = _DEFERRED_MODES.get(mode)
-    if where is None:
-        hint = (": full int8 detectors come from ops.quantize."
-                "build_detector_int8 or build_auto_detector"
-                if mode == "int8" else "")
-        raise ValueError(f"unknown detector mode {mode!r}{hint}")
-    raise NotImplementedError(f"mode={mode!r} is not ported yet: {where}")
-
-
 def variables_on(variables, device: torch.device) -> Dict[str, dict]:
     """The {"params", "batch_stats"} tree with every tensor on `device`."""
     return {part: {scope: {name: {k: v.to(device) for k, v in p.items()}
@@ -167,6 +183,7 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                    score_thresh: float = 0.3, iou_thresh: float = 0.45,
                    compute_dtype: torch.dtype = torch.bfloat16,
                    box_topk: int = 256, mode: str = "prefilter",
+                   approx_topk: bool = False,
                    calibration_images=None,
                    stem_int8_upto: int = 12,
                    activation_scales=None) -> nn.Module:
@@ -183,6 +200,13 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                   (pre_topk=min(pre_topk, box_topk) on the CPU route);
                   equal to "exact" whenever no more than box_topk boxes
                   pass the score threshold.
+      "split"     the split serving head: each detection conv as a
+                  15-channel fp32 boxconf conv and a conv of 128-wide
+                  class blocks in bf16 (ops.fast_postprocess.
+                  split_serving_head), candidate selection over
+                  box_topk candidates and the shared-candidate NMS kernel
+                  (its plain version on the CPU); the prefilter's math,
+                  rows in candidate order when max_out >= box_topk.
       "packed"    the serving path: one detection conv per scale with
                   128-wide per-anchor blocks, candidate selection by the
                   class-lane-masked objectness over box_topk candidates,
@@ -201,11 +225,16 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                   calibrate_activation_scales returns them). Runs in bf16
                   whatever compute_dtype says, as in the JAX package.
 
-    The JAX package's "split" mode raises NotImplementedError naming the
-    ROADMAP item that ports it; full int8 detectors come from
-    ops.quantize.build_detector_int8 (or build_auto_detector).
+    Full int8 detectors come from ops.quantize.build_detector_int8 (or
+    build_auto_detector); "int8" and any other mode raise ValueError.
+    approx_topk is the JAX package's argument of the split and packed
+    modes; either value selects the exact top-k (ops.fast_postprocess).
     """
-    check_mode(mode)
+    if mode not in _MODES:
+        hint = (": full int8 detectors come from ops.quantize."
+                "build_detector_int8 or build_auto_detector"
+                if mode == "int8" else "")
+        raise ValueError(f"unknown detector mode {mode!r}{hint}")
     variables = variables_on(variables, device)
     tables = decode_tables(img_size, anchors, device=device)
     if mode == "stem8":
@@ -224,7 +253,15 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
     folded = fold_batch_norm(variables, dtype=compute_dtype)
     if mode == "packed":
         folded = pack_serving_head(folded, num_classes)
+    elif mode == "split":
+        folded = split_serving_head(folded, num_classes)
     channels_last_weights(folded)
+    if mode == "split":
+        return SplitDetector(folded, tables, num_classes, img_size,
+                             max_out=max_out, box_topk=box_topk,
+                             score_thresh=score_thresh,
+                             iou_thresh=iou_thresh,
+                             compute_dtype=compute_dtype).eval()
     if mode == "packed":
         return PackedDetector(folded, tables, num_classes, img_size,
                               max_out=max_out, box_topk=box_topk,
@@ -266,11 +303,13 @@ SERVING_TABLES = {
 
 
 def select_serving_mode(img_size: Tuple[int, int], *,
-                        quantize: str = "hybrid",
-                        device: torch.device = torch.device("cpu")) -> str:
+                        device: torch.device,
+                        quantize: str = "hybrid") -> str:
     """Pick the serving mode for an inference resolution on `device`'s
     type: the fastest mode the budget allows, as that device type measured
-    it, so never one measured slower than bf16 packed.
+    it, so never one measured slower than bf16 packed. `device` is
+    required: the policy follows the card the caller names, and a default
+    would hand a CUDA caller the CPU's (JAX's TPU) policy.
 
     quantize declares how much numeric approximation the caller accepts:
       "none"    bf16 arithmetic only   -> "packed"
@@ -335,9 +374,9 @@ def detections_to_numpy(dets: Dict[str, torch.Tensor], batch_index: int = 0
     """Strip padding: fixed-shape detector output -> ragged host arrays
     (boxes [N, 4], scores [N], labels [N]) for one image. Row order depends
     on the mode: exact-mode rows are score-descending within each class
-    group; packed-mode rows (and prefilter-mode rows on the GPU) come in
-    candidate order when max_out >= box_topk. Sort by score on the host for
-    a top-N slice."""
+    group; packed- and split-mode rows (and prefilter-mode rows on the GPU)
+    come in candidate order when max_out >= box_topk. Sort by score on the
+    host for a top-N slice."""
     valid = dets["valid"][batch_index].bool().cpu().numpy()
     boxes = dets["boxes"][batch_index].float().cpu().numpy()[valid]
     scores = dets["scores"][batch_index].float().cpu().numpy()[valid]

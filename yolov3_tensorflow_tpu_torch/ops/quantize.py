@@ -13,9 +13,9 @@ trees and arithmetic:
 
 Three forwards share the weights:
 
-- `yolov3_forward_int8` / `_int8_packed`: bf16 activations between
-  layers; each conv quantizes its input (the images are cast to bf16
-  first);
+- `yolov3_forward_int8` / `_int8_packed` / `_int8_split`: bf16
+  activations between layers; each conv quantizes its input (the images
+  are cast to bf16 first);
 - `yolov3_forward_int8_chained`: int8 activations between layers, each at
   its consumer's calibrated scale; residual adds in the closing conv's
   epilogue; the FPN concats replaced by two GEMMs summed in the epilogue
@@ -29,8 +29,9 @@ computes it: `_scale_of` is a float64, and `_requant` multiplies by the
 float64 reciprocal taken to float32 (no division on the device: CUDA
 divides by a scalar through its reciprocal).
 
-Not ported: `yolov3_forward_int8_split` (the split head is not ported;
-ROADMAP queue 1, item 12) and `approx_topk`.
+`build_detector_int8` has no `approx_topk`: off the TPU JAX's
+approx_max_k is a full sort, and the port's postprocesses take the exact
+top-k (ops.fast_postprocess).
 
 Tensors are NCHW in channels_last memory inside the forwards, as in
 `models.layers`; the public forwards take NHWC images and return NHWC
@@ -57,11 +58,11 @@ from yolov3_tensorflow_tpu_torch.models.yolov3 import (BACKBONE_PLAN,
                                                        _backbone_forward,
                                                        _head_forward,
                                                        channels_last_weights,
-                                                       fold_batch_norm)
+                                                       fold_batch_norm, nhwc)
 from yolov3_tensorflow_tpu_torch.ops import int8_conv as I8
 from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
-    apply_packed_output_conv, decode_tables, pack_serving_head,
-    postprocess_packed, postprocess_prefilter)
+    apply_packed_output_conv, apply_split_output_conv, decode_tables,
+    pack_serving_head, postprocess_packed, postprocess_prefilter)
 
 Params = Dict[str, Any]
 CPU = torch.device("cpu")
@@ -212,7 +213,7 @@ def _int8_body(qparams: Params, images: torch.Tensor, out_fn):
     routes = _backbone_forward(lambda i, x, s: bn_conv("backbone", i, x, s),
                                x)
     fmaps = _head_forward(lambda i, x: bn_conv("head", i, x), out_fn, routes)
-    return [f.permute(0, 2, 3, 1) for f in fmaps]
+    return [nhwc(f) for f in fmaps]
 
 
 def yolov3_forward_int8(qparams: Params, images: torch.Tensor
@@ -233,6 +234,18 @@ def yolov3_forward_int8_packed(qparams_packed: Params, images: torch.Tensor):
         qparams_packed, images,
         lambda i, x: apply_packed_output_conv(
             qparams_packed["head"][f"conv_{i}"], x))
+
+
+def yolov3_forward_int8_split(qparams_split: Params, images: torch.Tensor):
+    """Quantized forward emitting split head outputs. qparams_split =
+    split_serving_head(quantize_model(...), C): its bf16 detection convs
+    are plain {w, b}, as in a folded tree, so the same rewrite applies.
+    Returns the `yolov3_forward_split` contract (bf16 compute and class
+    logits), for postprocess_split."""
+    return _int8_body(
+        qparams_split, images,
+        lambda i, x: apply_split_output_conv(
+            qparams_split["head"][f"conv_{i}"], x))
 
 
 # ---------------------------------------------------------------------------

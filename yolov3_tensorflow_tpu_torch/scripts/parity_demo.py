@@ -137,8 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="required exact-vs-serving matched fraction")
     p.add_argument("--serving_mode", default="packed",
                    choices=["packed", "split", "prefilter"],
-                   help="serving path to compare against the exact path "
-                        "(split is not ported)")
+                   help="serving path to compare against the exact path")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     return p
@@ -151,10 +150,8 @@ def main(argv=None) -> int:
                                                         load_classes,
                                                         load_variables,
                                                         resolve_device)
-    from yolov3_tensorflow_tpu_torch.ops.postprocess import (build_detector,
-                                                             check_mode)
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
 
-    check_mode(args.serving_mode)
     device = resolve_device(args.device)
     anchors = load_anchors("")
     classes = load_classes(args.class_name_path)
