@@ -230,7 +230,22 @@ Phases, in order; any failure exits non-zero before the last line:
    conv_cost) and beside its time with cudnn.benchmark on (cuDNN's
    algorithm chosen by timing), and conv_1's asymmetric padding as pad-and-crop
    (layers.conv_folded_asym) against F.pad first.
-18. prints the kernel record and the device record as JSON; the last line
+18. the measurement scripts, each one's main called in this process on
+   the card at short settings (BENCH_ARGS and the others; each script's
+   own defaults are for a run of its own): scripts.bench (batches 8, 64,
+   128 and 256 at 416x416, then stem8, int8 and the decode+NMS p50 at the
+   best batch) exits 0 with the JAX bench's five keys last and launches
+   the shared-candidate kernel once per request it made (its record
+   counts them; they join the kernel record's launches); on the p50's own
+   K=128 candidates the kernel is bit-equal to its plain version and is
+   timed beside it with its bound (the record's "p50_k128"); its batch-128
+   ms is printed beside phase 8's. scripts.bench_train (batches 8 and 32)
+   prints its row keys with no MFU above MFU_MAX; scripts.profile_train
+   (batch 8) times its seven stages with busy time and host gap, no MFU
+   above MFU_MAX; scripts.bench_loader (64 images, threads 4 and 8) gives
+   a rate for all five modes; scripts.bench_video (48 frames at frame
+   batch 1, 4 and 8) returns rc 0 with both FPS at each.
+19. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -309,6 +324,14 @@ SHARD_BATCH = 128                      # sharded serving, 64 a rank
 DP_TRAIN_IMAGES = 64                   # cli.train --num_processes 2
 SPLIT_REQUESTS = (8, 8, 8, 128, 128)   # the split detector's requests
 S2D_ATOL = 1e-4                        # the s2d stem against the plain one
+# phase 18: the measurement scripts at settings that keep it short (each
+# script's own defaults are for a run of its own; PERF.md records those)
+BENCH_ARGS = ["--batches", "8,64,128,256", "--iters", "2,6"]
+BENCH_TRAIN_ARGS = ["--batches", "8,32", "--iters", "2,6"]
+PROFILE_TRAIN_ARGS = ["--batch", "8", "--iters", "2,6"]
+LOADER_ARGS = ["--images", "64", "--threads", "4,8", "--epochs", "1"]
+VIDEO_ARGS = ["--frames", "48", "--batches", "1,4,8"]
+MFU_MAX = 1.05                         # a higher MFU means an elided step
 
 
 def fail(msg: str) -> None:
@@ -2938,6 +2961,185 @@ def split_phase(dev: torch.device, card: str, variables: dict,
                   served["batches"])
 
 
+def run_script(module, argv: list) -> str:
+    """module.main(argv) in this process on the card: its exit code must be
+    0. Returns its standard output, which is also printed (its standard
+    error passes through)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    out = buf.getvalue()
+    print(out, end="")
+    name = module.__name__.rsplit(".", 1)[-1]
+    print(f"{name} {' '.join(argv)}: rc {rc}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(rc == 0, f"{name} exited {rc}")
+    return out
+
+
+def last_json(text: str, what: str) -> dict:
+    try:
+        return json.loads(text.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        fail(f"{what}: its last line is not a JSON object ({e})")
+
+
+def bench_check(dev: torch.device, card: str, tmp: Path, launches: dict,
+                max_err: dict, packed_ms: float) -> dict:
+    """Phase 18, part 1: scripts.bench (its contract, the shared-candidate
+    kernel once a request, the kernel on the decode+NMS p50's own K=128
+    candidates: bit-equal to its plain version, timed in turns, with its
+    bound). Returns K1's K=128 entry of the kernel record."""
+    from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import (
+        fold_batch_norm, yolov3_forward_folded)
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        decode_tables, prefilter_candidates)
+    from yolov3_tensorflow_tpu_torch.scripts import bench, roofline
+    record_path = tmp / "bench.json"
+    nms_cuda.nms_keep_mask_shared.launches = 0
+    out = run_script(bench, BENCH_ARGS + ["--record", str(record_path)])
+    n = nms_cuda.nms_keep_mask_shared.launches
+    record = json.loads(record_path.read_text())
+    contract = last_json(out, "bench")
+    check(set(contract) == {"metric", "value", "unit", "vs_baseline",
+                            "mode"}, f"bench's keys: {sorted(contract)}")
+    check(contract["metric"] == "images_per_sec_416_inference"
+          and contract["unit"] == "img/s" and contract["value"] > 0
+          and contract["mode"] in ("bf16", "stem_int8_hybrid"),
+          f"bench's contract: {contract}")
+    check(n == record["requests"], f"nms_shared launched {n} times for "
+          f"bench's {record['requests']} requests")
+    launches["nms_shared"] += n
+    rows = {r["batch"]: r for r in record["bf16"]}
+    print(f"bench: nms_shared launched {n} times, once for each of its "
+          f"{record['requests']} requests; knee (best of "
+          f"{sorted(rows)}) at batch {record['best_batch']}: "
+          f"{record['value']:.1f} img/s ({contract['mode']}); batch "
+          f"{ROOF_BATCH} {rows[ROOF_BATCH]['ms']:.3f} ms/batch (busy "
+          f"{rows[ROOF_BATCH]['busy_ms']:.3f} ms) beside phase 8's packed "
+          f"{packed_ms:.3f} ms [{card}]")
+
+    p50 = record["p50"]
+    b, k = p50["batch"], bench.P50["box_topk"]
+    st, it = bench.P50["score_thresh"], bench.P50["iou_thresh"]
+    anchors = np.asarray(DEFAULT_ANCHORS, np.float32)
+    with torch.inference_mode():
+        variables = bench.serving_variables(dev)
+        images = bench.bench_images(b, (SIZE, SIZE), dev)
+        fmaps = yolov3_forward_folded(
+            fold_batch_norm(variables, dtype=torch.bfloat16), images,
+            compute_dtype=torch.bfloat16)
+        boxes, scores = prefilter_candidates(
+            fmaps, C, decode_tables((SIZE, SIZE), anchors, device=dev), k)
+        del variables, images, fmaps
+    check(tuple(scores.shape) == (b, k, C),
+          f"p50 candidates {tuple(scores.shape)}")
+    got = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+    want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores, st, it)
+    check(torch.equal(got, want), "nms_shared keep masks differ on the "
+          "decode+NMS p50's K=128 candidates")
+    max_err["nms_shared"] = max(max_err["nms_shared"], float(
+        (got.float() - want.float()).abs().max()))
+    counts = roofline.shared_counts(scores, want, st)
+    k_ms, p_ms, k_runs, p_runs = in_turns(
+        lambda: nms_cuda.nms_keep_mask_shared(boxes, scores, st, it),
+        lambda: nms_cuda.nms_keep_mask_shared_reference(boxes, scores, st,
+                                                        it), 200, 3)
+    bound = roofline.bound_nms_shared(b, k, C)
+    print(f"decode+NMS p50 {p50['ms']:.3f} ms per batch of {b} "
+          f"({p50['ms_per_img']:.4f} ms/img, p90 {p50['p90_ms']:.3f}); its "
+          f"nms_shared B={b} K={k} C={C}: valid per class mean "
+          f"{counts['valid_mean']:.2f} max {counts['valid_max']}, kept mean "
+          f"{counts['kept_mean']:.2f} max {counts['kept_max']}; kernel == "
+          f"plain; kernel {k_ms:.4f} ms (runs {k_runs[0]:.4f}, "
+          f"{k_runs[1]:.4f}), plain {p_ms:.4f} ms (runs {p_runs[0]:.4f}, "
+          f"{p_runs[1]:.4f}); bound {bound[0]:.4f} ms ({bound[1]}): "
+          f"{bound[0] / k_ms * 100:.1f}% [{card}]")
+    return {"shape": f"B={b} K={k} C={C}", "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def train_scripts_check(card: str, tmp: Path) -> None:
+    """Phase 18, part 2: scripts.bench_train (its contract; no MFU above
+    MFU_MAX) and scripts.profile_train (every stage, MFU within MFU_MAX,
+    busy time and host gap per stage)."""
+    from yolov3_tensorflow_tpu_torch.scripts import (bench_train,
+                                                     profile_train)
+    out = last_json(run_script(bench_train, BENCH_TRAIN_ARGS), "bench_train")
+    check(out.get("metric") == "train_step_416", f"bench_train: {out}")
+    keys = {"batch", "ms_per_step", "img_per_sec", "model_flops_per_step",
+            "mfu_vs_bf16_peak", "busy_ms", "idle_share"}
+    for row in out["rows"]:
+        check(set(row) == keys, f"bench_train row keys {sorted(row)}")
+        mfu = row["mfu_vs_bf16_peak"]
+        check(mfu is not None and 0 < mfu <= MFU_MAX,
+              f"bench_train MFU {row['mfu_vs_bf16_peak']} at batch "
+              f"{row['batch']}: outside (0, {MFU_MAX}]")
+        print(f"bench_train batch {row['batch']}: {row['ms_per_step']} "
+              f"ms/step, {row['img_per_sec']} img/s, MFU "
+              f"{row['mfu_vs_bf16_peak']}, busy {row['busy_ms']} ms, idle "
+              f"{row['idle_share']} [{card}]")
+    path = tmp / "profile_train.json"
+    run_script(profile_train, PROFILE_TRAIN_ARGS + ["--record", str(path)])
+    rows = json.loads(path.read_text())["rows"]
+    check([r["stage"] for r in rows] == [
+        "fwd(train)", "loss(fmaps)", "fwd+loss", "grad(fwd+bwd)",
+        "opt(grads)", "l2(params)", "full step"],
+        f"profile_train stages {[r['stage'] for r in rows]}")
+    for r in rows:
+        check(r["mfu"] is not None and r["mfu"] <= MFU_MAX
+              and r["busy_ms"] > 0,
+              f"profile_train {r['stage']}: MFU {r['mfu']}, busy "
+              f"{r['busy_ms']} ms")
+
+
+def host_scripts_check(card: str, tmp: Path) -> None:
+    """Phase 18, part 3: scripts.bench_loader (a rate for every mode at
+    each thread count) and scripts.bench_video (rc 0 and a steady-state
+    and overall FPS at every frame batch)."""
+    import re
+
+    from yolov3_tensorflow_tpu_torch.scripts import bench_loader, bench_video
+    out = run_script(bench_loader, LOADER_ARGS)
+    lines = [line for line in out.splitlines() if line.startswith("threads")]
+    threads = LOADER_ARGS[LOADER_ARGS.index("--threads") + 1].split(",")
+    check(len(lines) == len(threads), f"bench_loader lines: {lines}")
+    for line in lines:
+        # "threads N: train R img/s | train+mixup R | val R | ..."
+        rates = [float(re.findall(r"[0-9.]+", part)[-1])
+                 for part in line.split(":", 1)[1].split("|")]
+        check(len(rates) == 5 and all(r > 0 for r in rates),
+              f"bench_loader: {line}")
+    path = tmp / "video.json"
+    run_script(bench_video, VIDEO_ARGS + ["--out", str(path)])
+    results = json.loads(path.read_text())["results"]
+    batches = VIDEO_ARGS[VIDEO_ARGS.index("--batches") + 1].split(",")
+    check(sorted(results) == sorted(batches), f"bench_video: {results}")
+    for fb, r in results.items():
+        check(r["rc"] == 0 and r["steady_fps"] and r["overall_fps"],
+              f"bench_video frame batch {fb}: {r}")
+        print(f"bench_video frame batch {fb}: steady {r['steady_fps']} FPS, "
+              f"overall {r['overall_fps']} FPS [{card}]")
+
+
+def measure_phase(dev: torch.device, card: str, launches: dict,
+                  max_err: dict, packed_ms: float) -> dict:
+    """Phase 18: the measurement scripts (see the module docstring).
+    Returns K1's K=128 entry of the kernel record."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        k128 = bench_check(dev, card, tmp, launches, max_err, packed_ms)
+        train_scripts_check(card, tmp)
+        host_scripts_check(card, tmp)
+    return k128
+
+
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3342,13 +3544,21 @@ def main() -> int:
     print(f"split head and s2d stem: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 18. records -----------------------------------------------------
+    # ---- 18. the measurement scripts ------------------------------------
+    t0 = time.perf_counter()
+    k128 = measure_phase(dev, card, launches, max_err, timings[ROOF_BATCH])
+    print(f"measurement scripts: {time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
+
+    # ---- 19. records -----------------------------------------------------
+    extra = {"nms_shared": {"p50_k128": k128}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": max_err[name], "ms": kernel_ms[name][0],
         "plain_ms": kernel_ms[name][1], "bound_ms": bounds[name][0],
-        "bound_by": bounds[name][1], "library_ms": library[name]}
+        "bound_by": bounds[name][1], "library_ms": library[name],
+        **extra.get(name, {})}
         for name, (source, replaces) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,9 @@ def test_every_module_imports_with_jax_blocked():
                  "cli.parse_voc", "utils.kmeans", "scripts.overfit_gate",
                  "parallel", "parallel.multihost", "parallel.mesh",
                  "parallel.data_parallel", "parallel.serving",
-                 "scripts.parity_demo"):
+                 "scripts.parity_demo", "scripts.bench",
+                 "scripts.bench_train", "scripts.profile_train",
+                 "scripts.bench_loader", "scripts.bench_video"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "for blocked in ('jax', 'optax', 'orbax'):\n"

@@ -38,6 +38,15 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def device_name(device: torch.device) -> str:
+    """What a measurement names its device by: the card's name
+    (torch.cuda.get_device_name), or "cpu"."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
 def load_variables(restore_path: str, num_classes: int,
                    device: torch.device) -> Dict[str, Any]:
     """Model variables ({"params", "batch_stats"}) on `device`, from a

@@ -10,6 +10,9 @@ Counterpart of `yolov3_tensorflow_tpu/utils/profiling.py`:
   named regions in it (`record_function`).
 - `cuda_ms`: mean device time of a callable from CUDA events, for the
   probes and the stage profiler.
+- `differential_ms` and `call_samples_ms`: a callable's time per call, host
+  gaps included, for the measurement scripts (`scripts.bench`,
+  `bench_train`, `profile_train`).
 """
 
 from __future__ import annotations
@@ -132,6 +135,76 @@ def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _sync_of(device: torch.device) -> Callable[[], None]:
+    """The wait for `device`'s queued work: torch.cuda.synchronize on a
+    CUDA device, nothing on the CPU, where PyTorch returns when done."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    if device.type == "cpu":
+        return lambda: None
+    raise ValueError(f"no timing for device type {device.type!r}")
+
+
+def differential_ms(fn: Callable[[], Any], device: torch.device, n1: int,
+                    n2: int, reps: int = 3) -> float:
+    """Milliseconds per call of fn() on `device`, host gaps included:
+    (T(n2) - T(n1)) / (n2 - n1), where T(n) is the host clock around n
+    back-to-back calls and one final sync (torch.cuda.synchronize; none on
+    the CPU), the least of `reps` such differentials after one untimed
+    call. The difference cancels the fixed cost of the sync; noise only
+    ever adds time, hence the least. (The JAX scripts' chained
+    differentials, without the scalar they fed back through each call:
+    eager PyTorch elides no call.)"""
+    if not 0 < n1 < n2:
+        raise ValueError(f"differential_ms needs 0 < n1 < n2, got {n1}, {n2}")
+    sync = _sync_of(device)
+    fn()
+    sync()
+
+    def run(n: int) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        return time.perf_counter() - t0
+
+    diffs = []
+    for _ in range(reps):
+        t1 = run(n1)
+        t2 = run(n2)
+        diffs.append((t2 - t1) / (n2 - n1))
+    return max(min(diffs), 1e-9) * 1e3
+
+
+def call_samples_ms(fn: Callable[[], Any], device: torch.device,
+                    n: int) -> List[float]:
+    """The milliseconds of each of n calls of fn(), each started on an idle
+    device after one untimed call: on a CUDA device from a CUDA event
+    recorded before the call to one recorded after it (the device's clock,
+    the host's launch gaps inside the call included), on the CPU from the
+    host clock. For percentiles of a call's latency."""
+    sync = _sync_of(device)
+    fn()
+    sync()
+    out = []
+    cuda = torch.device(device).type == "cuda"
+    for _ in range(n):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            sync()
+            out.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def device_busy_ms(fn: Callable[[], Any], iters: int) -> float:
