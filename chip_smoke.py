@@ -245,7 +245,28 @@ Phases, in order; any failure exits non-zero before the last line:
    above MFU_MAX; scripts.bench_loader (64 images, threads 4 and 8) gives
    a rate for all five modes; scripts.bench_video (48 frames at frame
    batch 1, 4 and 8) returns rc 0 with both FPS at each.
-19. prints the kernel record and the device record as JSON; the last line
+19. the serving experiments, the recipe-precision analyzer and the host
+   library, each script's main called in this process on the card at
+   short settings (EXP_ARGS): exp_score, exp_topk, exp_tail and exp_pp_incr
+   at batch 128, exp_postprocess at 128 with the sweep at 8 and 32,
+   exp_stem_int8 at batch 32 (upto 4, 9, 12) and exp_highres_int8 at
+   896x1344 batch 4 (upto 9, 12 and the refused 15), every --iters 2,6
+   (1,3 at 896x1344). Each exits 0 with its record last (equal to its
+   --out file), a device busy time beside every timed row, and the
+   shared-candidate kernel launched once for each call its record counts
+   (joining the kernel record's launches); the kernel bit-equal to its
+   plain version on exp_topk's synthetic NMS-only candidates (B=128,
+   K=128); exp_pp_incr's last row (the packed detector's program) within
+   5% of phase 8's packed ms at batch 128. scripts.analyze_recipe_
+   precision on phase 13's gate directory: the per-group kernel once per
+   eval batch (joining the record's launches), its mAP at cutoff 0.01
+   equal to the gate's. The host library (utils/native.py) built from
+   csrc/postprocess.cc by the host compiler into build/torch_kernels/:
+   NMS equal to py_nms at both pixel offsets, per-class NMS to cpu_nms,
+   the IoU matrix to the numpy one, bit for bit; the native and numpy IoU
+   timed in turns on cli.evaluate's shapes (150 detections x 50 ground
+   truth boxes an image, 8 images).
+20. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -263,6 +284,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -332,6 +354,21 @@ PROFILE_TRAIN_ARGS = ["--batch", "8", "--iters", "2,6"]
 LOADER_ARGS = ["--images", "64", "--threads", "4,8", "--epochs", "1"]
 VIDEO_ARGS = ["--frames", "48", "--batches", "1,4,8"]
 MFU_MAX = 1.05                         # a higher MFU means an elided step
+# phase 19: the serving experiments at settings that keep it short (each
+# script's own defaults are for a run of its own)
+EXP_ARGS = {
+    "exp_score": ["--batch", "128", "--iters", "2,6"],
+    "exp_topk": ["--batch", "128", "--iters", "2,6"],
+    "exp_tail": ["--batch", "128", "--iters", "2,6"],
+    "exp_pp_incr": ["--batch", "128", "--iters", "2,6"],
+    "exp_postprocess": ["--batch", "128", "--iters", "2,6", "--sweep",
+                        "8,32"],
+    "exp_stem_int8": ["--batch", "32", "--iters", "2,6"],
+    "exp_highres_int8": ["--batch", "4", "--iters", "1,3"],
+}
+PP_INCR_TOL = 0.05                     # exp_pp_incr's full row vs phase 8
+IOU_SHAPES = (150, 50, 8)              # cli.evaluate: dets, GT boxes, images
+IOU_REPS = 50                          # batches of IoU matrices timed
 
 
 def fail(msg: str) -> None:
@@ -1433,13 +1470,14 @@ def convert_check(dev: torch.device, variables: dict, tmp: Path) -> None:
           f"{len(drawn[0])} boxes")
 
 
-def gate_check(dev: torch.device, card: str, tmp: Path) -> None:
+def gate_check(dev: torch.device, card: str, tmp: Path) -> float:
     """Device data path, parts 3 and 4b: the reduced overfit gate in device
     mode, graded by cli.evaluate.run_eval with the per-group kernel once per
     evaluate batch; then cli.strip_checkpoint of the gate's best checkpoint
     (written at its last epoch, with the optimizer state) and cli.evaluate
     of the stripped one, which must give the gate's mAP. The mAP limit is
-    checked last, so that a gate short of it still tests the CLIs."""
+    checked last, so that a gate short of it still tests the CLIs. Returns
+    the gate's mAP."""
     import contextlib
     import io
     import math
@@ -1516,21 +1554,24 @@ def gate_check(dev: torch.device, card: str, tmp: Path) -> None:
           "cli.evaluate of the stripped checkpoint differs from the gate's")
     check(rc == 0 and summary["passed"] and result["mAP"] >= 0.95,
           f"overfit gate: rc {rc}, mAP {result['mAP']}")
+    return result["mAP"]
 
 
 def device_data_phase(dev: torch.device, card: str, anchors: np.ndarray,
-                      variables: dict, host_steps: dict, tmp: Path) -> Path:
+                      variables: dict, host_steps: dict, tmp: Path
+                      ) -> Tuple[Path, float]:
     """Phase 13: the device data path, the reduced overfit gate and the
     checkpoint CLIs (see the module docstring), in the directory `tmp`.
-    Returns the gate's directory (its data and checkpoints)."""
+    Returns the gate's directory (its data and checkpoints) and its
+    mAP."""
     from yolov3_tensorflow_tpu_torch.data.synthetic import generate_dataset
     train = generate_dataset(str(tmp / "train"), TRAIN_IMAGES, seed=0,
                              img_size=(SIZE, SIZE), prefix="train")
     data_path_check(dev, card, train["annotation_file"], anchors)
     device_timings(dev, card, train["annotation_file"], anchors, host_steps)
     convert_check(dev, variables, tmp)
-    gate_check(dev, card, tmp)
-    return tmp / "gate"
+    gate_map = gate_check(dev, card, tmp)
+    return tmp / "gate", gate_map
 
 
 def int8_gemm_check(dev: torch.device, qp: dict, qc: dict) -> None:
@@ -3140,6 +3181,162 @@ def measure_phase(dev: torch.device, card: str, launches: dict,
     return k128
 
 
+def experiment_scripts(dev: torch.device, card: str, tmp: Path,
+                       launches: dict, max_err: dict,
+                       packed_ms: float) -> None:
+    """Phase 19, part 1: the seven serving experiments at EXP_ARGS, each
+    main in this process: rc 0, its record last and in its --out file, a
+    device busy time beside every timed row, the shared-candidate kernel
+    once for each call its record counts (joining the kernel record's
+    launches), and on exp_topk's synthetic candidates that kernel bit-equal
+    to its plain version; exp_pp_incr's full row within PP_INCR_TOL of
+    phase 8's packed detector at batch 128."""
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.scripts import (
+        exp_highres_int8, exp_postprocess, exp_pp_incr, exp_score,
+        exp_stem_int8, exp_tail, exp_topk)
+    modules = {m.__name__.rsplit(".", 1)[-1]: m for m in (
+        exp_score, exp_topk, exp_tail, exp_pp_incr, exp_postprocess,
+        exp_stem_int8, exp_highres_int8)}
+    records = {}
+    for name, argv in EXP_ARGS.items():
+        torch.cuda.empty_cache()
+        path = tmp / "experiments" / f"{name}.json"
+        torch.cuda.synchronize()
+        nms_cuda.nms_keep_mask_shared.launches = 0
+        nms_cuda.nms_keep_mask.launches = 0
+        record = last_json(run_script(modules[name],
+                                      argv + ["--out", str(path)]), name)
+        torch.cuda.synchronize()
+        k1, k2 = (nms_cuda.nms_keep_mask_shared.launches,
+                  nms_cuda.nms_keep_mask.launches)
+        check(record == json.loads(path.read_text()),
+              f"{name}: its last line is not its --out record")
+        timed = [r for r in record["rows"] if r["ms"] is not None]
+        check(bool(timed) and all(r["ms"] > 0 and r["busy_ms"] is not None
+                                  for r in timed),
+              f"{name}: a timed row without a time or a busy time")
+        check((k1, k2) == (record["nms_calls"], 0),
+              f"{name}: (nms_shared, nms) launched {(k1, k2)} times for "
+              f"its {record['nms_calls']} calls through the kernel")
+        launches["nms_shared"] += k1
+        print(f"{name}: nms_shared launched {k1} times, once for each of "
+              f"its {record['nms_calls']} calls through it [{card}]")
+        records[name] = record
+
+    b = records["exp_topk"]["batch"]
+    boxes, scores = exp_topk.synthetic_candidates(b, C, dev)
+    st, it = exp_topk.NMS["score_thresh"], exp_topk.NMS["iou_thresh"]
+    got = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+    want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores, st, it)
+    check(torch.equal(got, want), "nms_shared keep masks differ on "
+                                  "exp_topk's synthetic candidates")
+    max_err["nms_shared"] = max(max_err["nms_shared"], float(
+        (got.float() - want.float()).abs().max()))
+    d = records["exp_topk"]["differences"]
+    print(f"exp_topk: nms_shared == plain on its synthetic candidates B={b} "
+          f"K={boxes.shape[1]} C={C} (kept {int(want.sum())}); torch.topk "
+          f"against the stable sort: {d['indices_differ']} of "
+          f"{d['indices']} indices, {d['detections_only_sort']} / "
+          f"{d['detections_only_topk']} of {d['detections']} detections "
+          f"differ [{card}]")
+    full = records["exp_pp_incr"]["rows"][-1]
+    check(full["name"] == "full" and full["batch"] == ROOF_BATCH,
+          f"exp_pp_incr's last row: {full['name']} at {full['batch']}")
+    rel = abs(full["ms"] - packed_ms) / packed_ms
+    print(f"exp_pp_incr: full {full['ms']:.3f} ms at batch {ROOF_BATCH} "
+          f"beside phase 8's packed {packed_ms:.3f} ms ({rel * 100:.2f}% "
+          f"apart); increments {records['exp_pp_incr']['increments']}; "
+          f"decode+NMS p50 {records['exp_pp_incr']['p50']['ms']:.3f} ms "
+          f"[{card}]")
+    check(rel <= PP_INCR_TOL, f"exp_pp_incr's full row {full['ms']:.3f} ms "
+                              f"is {rel * 100:.1f}% off phase 8's packed "
+                              f"{packed_ms:.3f} ms")
+
+
+def recipe_and_native(dev: torch.device, card: str, tmp: Path,
+                      gate_dir: Path, gate_map: float,
+                      launches: dict) -> None:
+    """Phase 19, part 2: scripts.analyze_recipe_precision on phase 13's
+    gate (the per-group kernel once per eval batch, joining the kernel
+    record's launches; its mAP at cutoff 0.01 the gate's), then the host
+    library (utils/native.py): built from csrc/postprocess.cc, its NMS and
+    IoU equal to the numpy oracles, and its IoU timed beside numpy's on
+    cli.evaluate's shapes (IOU_SHAPES)."""
+    from yolov3_tensorflow_tpu_torch.evaluation.metrics import iou_matrix
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.scripts import analyze_recipe_precision
+    from yolov3_tensorflow_tpu_torch.utils import native
+    torch.cuda.synchronize()
+    nms_cuda.nms_keep_mask_shared.launches = 0
+    nms_cuda.nms_keep_mask.launches = 0
+    out = last_json(run_script(analyze_recipe_precision, [
+        "--gate", f"device={gate_dir}", "--img_size", str(SIZE),
+        "--out", str(tmp / "recipe.json"), "--note",
+        str(tmp / "recipe.md")]), "analyze_recipe_precision")
+    torch.cuda.synchronize()
+    k1, k2 = (nms_cuda.nms_keep_mask_shared.launches,
+              nms_cuda.nms_keep_mask.launches)
+    gate = out["gates"]["device"]
+    check((k1, k2) == (0, gate["eval_batches"]),
+          f"analyze_recipe_precision launched (nms_shared, nms) {(k1, k2)}, "
+          f"want (0, {gate['eval_batches']})")
+    launches["nms"] += k2
+    at001 = gate["sweep"]["0.01"]
+    print(f"analyze_recipe_precision on the gate: nms launched {k2} times "
+          f"({gate['eval_batches']} eval batches); cut 0.01 mAP "
+          f"{at001['mAP']:.6f} (the gate's {gate_map:.6f}), precision "
+          f"{at001['precision']:.4f}, recall {at001['recall']:.4f}, "
+          f"{at001['n_dets']} detections; cut 0.3 precision "
+          f"{gate['sweep']['0.3']['precision']:.4f}; decomposition "
+          f"{gate['decomposition']} [{card}]")
+    check(at001["mAP"] == gate_map,
+          f"analyze_recipe_precision's mAP at 0.01 {at001['mAP']} is not the "
+          f"gate's {gate_map}")
+
+    t0 = time.perf_counter()
+    lib = native.library_path()
+    build_s = time.perf_counter() - t0
+    check(lib.parent == ROOT / "build" / "torch_kernels",
+          f"the host library was built at {lib}")
+    native.self_test()
+    n_det, n_gt, n_img = IOU_SHAPES
+    rng = np.random.default_rng(0)
+    pairs = []
+    for _ in range(n_img):
+        xy = rng.uniform(0, SIZE, (n_det + n_gt, 2))
+        wh = rng.uniform(4, 200, (n_det + n_gt, 2))
+        bx = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+        pairs.append((bx[:n_det], bx[n_det:]))
+    for a, b in pairs:
+        check(np.array_equal(native.iou_matrix(a, b), iou_matrix(a, b)),
+              "the native IoU differs from the numpy IoU")
+    ms = {}
+    for name, fn in (("numpy", iou_matrix), ("native", native.iou_matrix),
+                     ("native", native.iou_matrix), ("numpy", iou_matrix)):
+        t0 = time.perf_counter()
+        for _ in range(IOU_REPS):
+            for a, b in pairs:
+                fn(a, b)
+        ms.setdefault(name, []).append(
+            (time.perf_counter() - t0) * 1e3 / IOU_REPS)
+    print(f"host library {lib.relative_to(ROOT)} (g++ route, {build_s:.2f} "
+          f"s): NMS == py_nms at offsets 0 and 1, nms_multiclass == cpu_nms, "
+          f"IoU == numpy, bit for bit; the IoU of {n_img} images x {n_det} "
+          f"detections x {n_gt} GT boxes: native "
+          f"{min(ms['native']):.4f} ms, numpy {min(ms['numpy']):.4f} ms per "
+          f"batch (the least of 2 turns of {IOU_REPS}, host clock) [{card}]")
+
+
+def experiments_phase(dev: torch.device, card: str, tmp: Path,
+                      gate_dir: Path, gate_map: float, launches: dict,
+                      max_err: dict, packed_ms: float) -> None:
+    """Phase 19: the serving experiments, the recipe-precision analyzer
+    and the host library (see the module docstring)."""
+    experiment_scripts(dev, card, tmp, launches, max_err, packed_ms)
+    recipe_and_native(dev, card, tmp, gate_dir, gate_map, launches)
+
+
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3512,31 +3709,33 @@ def main() -> int:
     print(f"training: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        # ---- 13. the device data path, the gate, the checkpoint CLIs -----
-        t0 = time.perf_counter()
-        gate_dir = device_data_phase(dev, card, anchors, variables,
-                                     host_steps, tmp)
-        print(f"device data path, overfit gate and checkpoint CLIs: "
-              f"{time.perf_counter() - t0:.1f} s wall")
-        check_no_jax()
+    # phases 13-16 and 19 share a temporary directory: phase 13's gate is
+    # read by phases 14 and 19
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    # ---- 13. the device data path, the gate, the checkpoint CLIs ---------
+    t0 = time.perf_counter()
+    gate_dir, gate_map = device_data_phase(dev, card, anchors, variables,
+                                           host_steps, tmp)
+    print(f"device data path, overfit gate and checkpoint CLIs: "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
 
-        # ---- 14. int8 serving --------------------------------------------
-        t0 = time.perf_counter()
-        int8_phase(dev, card, variables, anchors, tmp, gate_dir, max_err)
-        print(f"int8 serving: {time.perf_counter() - t0:.1f} s wall")
-        check_no_jax()
+    # ---- 14. int8 serving ------------------------------------------------
+    t0 = time.perf_counter()
+    int8_phase(dev, card, variables, anchors, tmp, gate_dir, max_err)
+    print(f"int8 serving: {time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
 
-        # ---- 15. the serving policy on CUDA --------------------------------
-        policy_phase(dev, card, tmp)
-        check_no_jax()
+    # ---- 15. the serving policy on CUDA ----------------------------------
+    policy_phase(dev, card, tmp)
+    check_no_jax()
 
-        # ---- 16. data parallelism ----------------------------------------
-        t0 = time.perf_counter()
-        dp_phase(dev, card, tmp, anchors, variables, max_err)
-        print(f"data parallelism: {time.perf_counter() - t0:.1f} s wall")
-        check_no_jax()
+    # ---- 16. data parallelism --------------------------------------------
+    t0 = time.perf_counter()
+    dp_phase(dev, card, tmp, anchors, variables, max_err)
+    print(f"data parallelism: {time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
 
     # ---- 17. the split head and the space-to-depth stem ------------------
     t0 = time.perf_counter()
@@ -3550,7 +3749,16 @@ def main() -> int:
     print(f"measurement scripts: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 19. records -----------------------------------------------------
+    # ---- 19. the serving experiments, the analyzer, the host library ----
+    t0 = time.perf_counter()
+    experiments_phase(dev, card, tmp, gate_dir, gate_map, launches, max_err,
+                      timings[ROOF_BATCH])
+    tmp_dir.cleanup()
+    print(f"serving experiments, analyzer and host library: "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
+
+    # ---- 20. records -----------------------------------------------------
     extra = {"nms_shared": {"p50_k128": k128}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,

@@ -107,3 +107,24 @@ def test_letterbox_resize_byte_equal(src_hw, dst_wh, interp):
     assert got[1:] == want[1:]
     assert (port_augment.letterbox_params(src_hw[1], src_hw[0], *dst_wh)
             == jax_augment.letterbox_params(src_hw[1], src_hw[0], *dst_wh))
+
+
+def _after_header(text: str) -> list:
+    """A C++ source's lines after its leading comment block."""
+    lines = text.splitlines()
+    i = 0
+    while i < len(lines) and (lines[i].startswith("//") or not lines[i]):
+        i += 1
+    return lines[i:]
+
+
+def test_native_source_copy():
+    """csrc/postprocess.cc equals the JAX package's native/postprocess.cc
+    apart from its header comment (which names the port's binding)."""
+    root = ASSETS.parent
+    got = _after_header((root / "yolov3_tensorflow_tpu_torch" / "csrc" /
+                         "postprocess.cc").read_text())
+    want = _after_header((root / "native" / "postprocess.cc").read_text())
+    assert got[0].startswith("#include") and len(got) > 100
+    diff = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    assert not diff and len(got) == len(want), diff[:5]

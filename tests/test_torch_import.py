@@ -42,7 +42,12 @@ def test_every_module_imports_with_jax_blocked():
                  "parallel.data_parallel", "parallel.serving",
                  "scripts.parity_demo", "scripts.bench",
                  "scripts.bench_train", "scripts.profile_train",
-                 "scripts.bench_loader", "scripts.bench_video"):
+                 "scripts.bench_loader", "scripts.bench_video",
+                 "scripts.experiments", "scripts.exp_score",
+                 "scripts.exp_topk", "scripts.exp_tail",
+                 "scripts.exp_pp_incr", "scripts.exp_postprocess",
+                 "scripts.exp_stem_int8", "scripts.exp_highres_int8",
+                 "scripts.analyze_recipe_precision", "utils.native"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "for blocked in ('jax', 'optax', 'orbax'):\n"

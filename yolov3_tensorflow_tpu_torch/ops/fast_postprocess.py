@@ -402,47 +402,63 @@ def yolov3_forward_packed(packed: dict, images: torch.Tensor, *,
                        stem_s2d=stem_s2d)
 
 
-def packed_candidates(packed_outs: Sequence[torch.Tensor], num_classes: int,
-                      tables: torch.Tensor, box_topk: int,
-                      score_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefilter and decode: packed head outputs -> (boxes [B, K, 4] xyxy in
-    input pixels, scores [B, K, C] = conf * class prob), both fp32, for the
-    K = min(box_topk, A) best anchors of each image.
-
-    The selection score is sigmoid(conf) * sigmoid(max over the class
-    lanes [0, C)), so conf/box/padding lanes never inflate a candidate's
-    rank, computed in `score_dtype` (fp32 by default; "bf16" ranks by a
-    bf16 score, as JAX's `score_dtype` does; the scores returned stay
-    fp32). Ties in it go to the lower anchor index.
-    """
+def packed_scores(packed_outs: Sequence[torch.Tensor], num_classes: int,
+                  score_dtype=None) -> torch.Tensor:
+    """The packed path's selection score [B, A] of every anchor, in global
+    anchor order: sigmoid(conf) * sigmoid(max over the class lanes [0, C)),
+    so conf/box/padding lanes never inflate a candidate's rank, computed in
+    `score_dtype` (fp32 by default; "bf16" as JAX's `score_dtype`)."""
     c = num_classes
     row = head_row_width(c)
     sdt = _score_dtype(score_dtype)
-    views, objs, offsets = [], [], []
-    off = 0
+    objs = []
     for p in packed_outs:
         b, hg, wg, _ = p.shape
         pr = p.reshape(b, hg * wg * 3, row)
-        obj = _score_sigmoid(pr[..., c].to(sdt)) * _score_sigmoid(
-            pr[..., :c].amax(dim=-1).to(sdt))
-        views.append(pr)
-        objs.append(obj)
-        offsets.append(off)
-        off += pr.shape[1]
-    cand = top_candidates(torch.cat(objs, dim=1), min(box_topk, off))
+        objs.append(_score_sigmoid(pr[..., c].to(sdt)) * _score_sigmoid(
+            pr[..., :c].amax(dim=-1).to(sdt)))
+    return torch.cat(objs, dim=1)
 
+
+def packed_decode(packed_outs: Sequence[torch.Tensor], cand: torch.Tensor,
+                  num_classes: int, tables: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of the candidates at global anchor indices cand [B, K],
+    gathered from the packed head outputs and decoded -> (boxes [B, K, 4]
+    xyxy in input pixels, scores [B, K, C] = conf * class prob), both
+    fp32."""
+    c = num_classes
+    row = head_row_width(c)
     rows = None
-    for pr, ofs in zip(views, offsets):
+    ofs = 0
+    for p in packed_outs:
+        b, hg, wg, _ = p.shape
+        pr = p.reshape(b, hg * wg * 3, row)
         na = pr.shape[1]
         local = (cand - ofs).clamp(0, na - 1)
         g = pr.gather(1, local[..., None].expand(-1, -1, row))  # [B, K, row]
         in_scale = ((cand >= ofs) & (cand < ofs + na))[..., None]
         rows = g if rows is None else torch.where(in_scale, g, rows)
+        ofs += na
 
     boxes = _decode(rows[..., c + 1:c + 5].float(), cand, tables)
     conf = torch.sigmoid(rows[..., c:c + 1].float())
     scores = conf * torch.sigmoid(rows[..., :c].float())
     return boxes, scores
+
+
+def packed_candidates(packed_outs: Sequence[torch.Tensor], num_classes: int,
+                      tables: torch.Tensor, box_topk: int,
+                      score_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefilter and decode: packed head outputs -> (boxes [B, K, 4] xyxy in
+    input pixels, scores [B, K, C] = conf * class prob), both fp32, for the
+    K = min(box_topk, A) best anchors of each image: `packed_scores` (in
+    `score_dtype`; the scores returned stay fp32), `top_candidates` (ties
+    to the lower anchor index), `packed_decode`.
+    """
+    obj = packed_scores(packed_outs, num_classes, score_dtype)
+    cand = top_candidates(obj, min(box_topk, obj.shape[1]))
+    return packed_decode(packed_outs, cand, num_classes, tables)
 
 
 def postprocess_packed(packed_outs: Sequence[torch.Tensor],

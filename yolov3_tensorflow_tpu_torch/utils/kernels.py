@@ -9,6 +9,12 @@ headers are compiled, so a build takes seconds.
 `--fmad=false` keeps nvcc from contracting a multiply and an add into one
 FMA: the kernels' float arithmetic must round exactly as their plain
 PyTorch versions do (IoU>t decisions near t must not flip).
+
+Host libraries (`csrc/<name>.cc`, a plain C interface for ctypes, such as
+`utils/native.py`'s) take the same route through the host's C++ compiler
+(`$CXX`, else `g++`) with HOST_FLAGS, into the same directory, hashed over
+the source, the compiler's path and the flags. `-ffp-contract=off` is
+`--fmad=false`'s counterpart: the library rounds as its numpy oracles do.
 """
 
 from __future__ import annotations
@@ -20,12 +26,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
 
 
 def _nvcc() -> str:
@@ -106,6 +113,41 @@ def sass_counts(lib: Path, opcodes=("HGMMA", "HMMA")) -> Dict[str, int]:
 def build_kernel(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """`build_kernels` for one source. Returns the library's path."""
     return build_kernels(name, defines=defines)[name]
+
+
+def host_compiler(name: Optional[str] = None) -> str:
+    """The path of the host C++ compiler `name` (default: `$CXX` where
+    set, else `g++`). Raises, naming the compiler, where it is not
+    found."""
+    name = name or os.environ.get("CXX") or "g++"
+    found = shutil.which(name)
+    if found is None:
+        raise RuntimeError(f"host C++ compiler {name!r} not found (set CXX "
+                           f"to a C++17 compiler, or put g++ on PATH)")
+    return found
+
+
+def build_host_library(name: str, compiler: Optional[str] = None) -> Path:
+    """Compile csrc/<name>.cc with the host compiler (`host_compiler
+    (compiler)`) into `build/torch_kernels/lib<name>_<hash>.so` unless
+    that library exists. Raises, naming the compiler and its output, where
+    the build fails. Returns the library's path."""
+    cxx = host_compiler(compiler)
+    src = CSRC / f"{name}.cc"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        (cxx,) + HOST_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {name}.cc ({proc.returncode}):\n"
+                           f"{(proc.stdout + proc.stderr)[-4000:]}")
+    os.replace(tmp, out)    # atomic: a concurrent build never sees half
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -111,15 +111,17 @@ def annotate(name: str) -> Iterator[None]:
 HOST_MS_PER_CALL = 0.25
 
 
-def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
+def cuda_ms(fn: Callable[[], Any], iters: int,
+            host_ms_per_call: float = HOST_MS_PER_CALL) -> float:
     """Mean device milliseconds of fn() over `iters` back-to-back calls,
     after 3 untimed calls, from CUDA events on the current stream.
 
     Before the timed calls the stream spins (a sleep kernel of at least
-    iters * HOST_MS_PER_CALL ms: its cycle count assumes no clock above
+    iters * host_ms_per_call ms: its cycle count assumes no clock above
     2 GHz) while the host enqueues them, so the reading is the device's
     time alone, without the gaps the host leaves when a call is shorter
-    than its launch cost.
+    than its launch cost. A call whose host time exceeds host_ms_per_call
+    needs a larger value, or the device waits inside the timed span.
 
     Needs a CUDA device: it raises rather than time the CPU."""
     if not torch.cuda.is_available():
@@ -128,7 +130,7 @@ def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(iters * HOST_MS_PER_CALL * 2e6))
+    torch.cuda._sleep(int(iters * host_ms_per_call * 2e6))
     start.record()
     for _ in range(iters):
         fn()
