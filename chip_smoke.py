@@ -265,8 +265,31 @@ Phases, in order; any failure exits non-zero before the last line:
    NMS equal to py_nms at both pixel offsets, per-class NMS to cpu_nms,
    the IoU matrix to the numpy one, bit for bit; the native and numpy IoU
    timed in turns on cli.evaluate's shapes (150 detections x 50 ground
-   truth boxes an image, 8 images).
-20. prints the kernel record and the device record as JSON; the last line
+   truth boxes an image, 8 images). evaluation.metrics.evaluate_batch, the
+   in-train evaluation's metric, at its own shapes (the eval step's
+   detections of the seed-0 COCO-80 tree at batch 8, 416^2, 4 ground truth
+   boxes an image), with each IoU route (the host library's, its default
+   where the library loads, and numpy's) and each route's IoU matrices
+   alone, timed in turns: the same recall and precision both ways.
+20. the graft entry points (yolov3_tensorflow_tpu_torch/entry.py).
+   entry() on the card: JAX's example, the output contract on it and on a
+   seeded batch of 8, the shared-candidate kernel once a call (joining the
+   kernel record's launches) and bit-equal to its plain version on the
+   program's candidates; make_entry_fn in fp32 on the card against the
+   CPU on the seed-0 tree with the spread head (same label, IoU >= 0.9,
+   score >= 0.32); fn's ms a call at batch 8 with its device busy time.
+   dryrun_multichip over every card (NCCL) and over 2 ranks (gloo on a
+   one-card host), spawned processes: finite losses, JAX's 99% rule on
+   the sharded detections against the single-device detector on the
+   plain keep mask, the kernel once a rank (joining the record's
+   launches) and bit-equal to its plain version on each rank's
+   candidates. The busy time late in this process
+   (utils.profiling.device_busy_ms): phase 19's K1 rows read above 0,
+   its forward-only exp_pp_incr row's idle share at batch 128 is within
+   0.01 of the same script's run alone in a fresh process, and the
+   packed forward at batch 128 reads a busy time within 1% of its device
+   time alone (cuda_ms).
+21. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -283,6 +306,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 from typing import Tuple
 
@@ -369,6 +393,12 @@ EXP_ARGS = {
 PP_INCR_TOL = 0.05                     # exp_pp_incr's full row vs phase 8
 IOU_SHAPES = (150, 50, 8)              # cli.evaluate: dets, GT boxes, images
 IOU_REPS = 50                          # batches of IoU matrices timed
+EVAL_BATCH = 8                         # evaluate_batch: the in-train batch
+# phase 20: the graft entry points (entry.py)
+ENTRY_ITERS = (5, 20)                  # entry()'s differential at batch 8
+IDLE_ALONE_TOL = 0.01                  # F4: fwd idle share, here vs alone
+BUSY_DEVICE_TOL = 0.01                 # F4: device-bound busy vs cuda_ms
+BUSY_DEVICE_ITERS = 10
 
 
 def fail(msg: str) -> None:
@@ -896,7 +926,7 @@ def cli_phase(dev: torch.device, card: str, variables: dict,
                   f"on the host -> {SIZE}^2 detections): {ms:.3f} ms/call, "
                   f"{ms / fb:.3f} ms/frame, {fb * 1000.0 / ms:.1f} frames/s; "
                   f"device busy {busy:.3f} ms/call, idle share "
-                  f"{max(0.0, 1 - busy / ms):.3f} [{card}]")
+                  f"{1 - busy / ms:.3f} [{card}]")
     for fb in STREAM_BATCHES:
         x = host[:fb].pin_memory()
         ms = cuda_ms(lambda: x.to(dev, non_blocking=True), 50)
@@ -1178,7 +1208,7 @@ def step_timing(dev: torch.device, card: str, fn, b: int,
     print(f"train step batch {b} at {SIZE}^2 (bf16, momentum, no freeze, "
           f"{what}): {ms:.3f} ms/step (host gaps included), "
           f"{b * 1000.0 / ms:.1f} img/s; device busy {busy:.3f} ms/step, "
-          f"idle share {max(0.0, 1 - busy / ms):.3f}; peak memory "
+          f"idle share {1 - busy / ms:.3f}; peak memory "
           f"{peak:.2f} GiB; bound {bound * 1e3:.3f} ms (3x the forward's "
           f"roofline bound, published peaks): {bound * 1e3 / ms * 100:.1f}% "
           f"of it [{card}]")
@@ -1871,13 +1901,15 @@ def int8_split(card: str, det, images: torch.Tensor) -> None:
     quantize passes, the patch builds and the rest (the epilogues, the
     bf16 detection convs, upsamples and casts): each of
     ops.int8_conv.{int8_gemm, quantize, im2col} runs inside a named
-    record_function for the profiled calls only, and its device time is
-    that of the kernels inside the range's device spans."""
+    record_function while the forward is traced
+    (utils.profiling.device_events), and its device time is that of the
+    kernels inside the range's device spans."""
     import bisect
     import itertools
 
     from yolov3_tensorflow_tpu_torch.ops import int8_conv as I8
-    from yolov3_tensorflow_tpu_torch.utils.profiling import union_length
+    from yolov3_tensorflow_tpu_torch.utils.profiling import (device_events,
+                                                             union_length)
     names = {"int8_gemm": "int8/gemm", "quantize": "int8/quantize",
              "im2col": "int8/im2col"}
     originals = {n: getattr(I8, n) for n in names}
@@ -1891,17 +1923,11 @@ def int8_split(card: str, det, images: torch.Tensor) -> None:
 
     iters = 3
     with torch.inference_mode():
-        det.forward_fn(det.params, images)
-        torch.cuda.synchronize()
         try:
             for n, label in names.items():
                 setattr(I8, n, named(originals[n], label))
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    det.forward_fn(det.params, images)
-                torch.cuda.synchronize()
+            device = device_events(lambda: det.forward_fn(det.params, images),
+                                   iters, record_ranges=True)
         finally:
             for n, fn in originals.items():
                 setattr(I8, n, fn)
@@ -1909,21 +1935,18 @@ def int8_split(card: str, det, images: torch.Tensor) -> None:
     # kernels launched inside it (one stream: nothing else runs there); a
     # range's time is the kernel time inside its spans, the rest is busy
     # time outside every span
-    cuda = torch.autograd.DeviceType.CUDA
     labels = set(names.values())
-    device = [e for e in prof.events() if e.device_type == cuda]
-    kernels = sorted((e.time_range.start, e.time_range.end) for e in device
-                     if e.name not in labels)
+    kernels = sorted((lo, hi) for name, lo, hi in device
+                     if name not in labels)
     busy = union_length(kernels) / 1e3 / iters
     starts = [k0 for k0, _ in kernels]
     reach = list(itertools.accumulate((k1 for _, k1 in kernels), max))
     parts = dict.fromkeys(sorted(labels), 0.0)
-    for e in device:
-        if e.name in labels:
-            lo, hi = e.time_range.start, e.time_range.end
+    for name, lo, hi in device:
+        if name in labels:
             inside = kernels[bisect.bisect_right(reach, lo):
                              bisect.bisect_left(starts, hi)]
-            parts[e.name] += union_length(
+            parts[name] += union_length(
                 [(max(k0, lo), min(k1, hi)) for k0, k1 in inside]
             ) / 1e3 / iters
     check(busy > 0 and parts["int8/gemm"] > 0,
@@ -1998,7 +2021,7 @@ def int8_timings(card: str, dets: dict, packed, batches: dict) -> dict:
             print(f"{name} detector batch {b}: {ms:.3f} ms/batch (turns "
                   f"{', '.join(f'{r:.3f}' for r in runs[name])}), "
                   f"{b * 1000.0 / ms:.1f} img/s; device busy {busy:.3f} "
-                  f"ms/batch, idle share {max(0.0, 1 - busy / ms):.3f}; peak "
+                  f"ms/batch, idle share {1 - busy / ms:.3f}; peak "
                   f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f}"
                   f" GiB above the resident) [{card}]")
         base_ms = out["bf16 packed"][b]
@@ -2874,10 +2897,10 @@ def split_timings(dev: torch.device, card: str, variables: dict,
         print(f"split detector batch {b}: {s_ms:.3f} ms/batch (runs "
               f"{s_runs[0]:.3f}, {s_runs[1]:.3f}), {b * 1000.0 / s_ms:.1f} "
               f"img/s, device busy {s_busy:.3f} ms, idle share "
-              f"{max(0.0, 1 - s_busy / s_ms):.3f}; packed in turns "
+              f"{1 - s_busy / s_ms:.3f}; packed in turns "
               f"{p_ms:.3f} ms/batch (runs {p_runs[0]:.3f}, {p_runs[1]:.3f}), "
               f"{b * 1000.0 / p_ms:.1f} img/s, busy {p_busy:.3f} ms, idle "
-              f"share {max(0.0, 1 - p_busy / p_ms):.3f}; split / packed "
+              f"share {1 - p_busy / p_ms:.3f}; split / packed "
               f"{s_ms / p_ms:.4f} [{card}]")
 
     images = batches[-1]
@@ -3183,14 +3206,15 @@ def measure_phase(dev: torch.device, card: str, launches: dict,
 
 def experiment_scripts(dev: torch.device, card: str, tmp: Path,
                        launches: dict, max_err: dict,
-                       packed_ms: float) -> None:
+                       packed_ms: float) -> dict:
     """Phase 19, part 1: the seven serving experiments at EXP_ARGS, each
     main in this process: rc 0, its record last and in its --out file, a
     device busy time beside every timed row, the shared-candidate kernel
     once for each call its record counts (joining the kernel record's
     launches), and on exp_topk's synthetic candidates that kernel bit-equal
     to its plain version; exp_pp_incr's full row within PP_INCR_TOL of
-    phase 8's packed detector at batch 128."""
+    phase 8's packed detector at batch 128. Returns the records by
+    script."""
     from yolov3_tensorflow_tpu_torch.ops import nms_cuda
     from yolov3_tensorflow_tpu_torch.scripts import (
         exp_highres_int8, exp_postprocess, exp_pp_incr, exp_score,
@@ -3252,6 +3276,7 @@ def experiment_scripts(dev: torch.device, card: str, tmp: Path,
     check(rel <= PP_INCR_TOL, f"exp_pp_incr's full row {full['ms']:.3f} ms "
                               f"is {rel * 100:.1f}% off phase 8's packed "
                               f"{packed_ms:.3f} ms")
+    return records
 
 
 def recipe_and_native(dev: torch.device, card: str, tmp: Path,
@@ -3263,7 +3288,8 @@ def recipe_and_native(dev: torch.device, card: str, tmp: Path,
     library (utils/native.py): built from csrc/postprocess.cc, its NMS and
     IoU equal to the numpy oracles, and its IoU timed beside numpy's on
     cli.evaluate's shapes (IOU_SHAPES)."""
-    from yolov3_tensorflow_tpu_torch.evaluation.metrics import iou_matrix
+    from yolov3_tensorflow_tpu_torch.evaluation.metrics import \
+        _iou_matrix as iou_matrix
     from yolov3_tensorflow_tpu_torch.ops import nms_cuda
     from yolov3_tensorflow_tpu_torch.scripts import analyze_recipe_precision
     from yolov3_tensorflow_tpu_torch.utils import native
@@ -3328,13 +3354,304 @@ def recipe_and_native(dev: torch.device, card: str, tmp: Path,
           f"batch (the least of 2 turns of {IOU_REPS}, host clock) [{card}]")
 
 
+def eval_iou_share(dev: torch.device, card: str) -> None:
+    """Phase 19, part 3: evaluation.metrics.evaluate_batch, the in-train
+    evaluation's host metric, at its own shapes: the eval step's
+    detections (eval config) of the seed-0 COCO-80 tree on EVAL_BATCH
+    seeded 416^2 images with 4 ground-truth boxes each, timed on this
+    host with each IoU route (the host library's, its default here, and
+    numpy's) and each route's IoU matrices alone, in turns (the least of
+    2, host clock); both routes give the same recall and precision."""
+    from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
+    from yolov3_tensorflow_tpu_torch.evaluation.metrics import (
+        _iou_matrix, evaluate_batch, extract_gt_from_y_true)
+    from yolov3_tensorflow_tpu_torch.train.trainer import (make_eval_step,
+                                                           to_host)
+    from yolov3_tensorflow_tpu_torch.utils import native
+    cfg = train_config("bfloat16", "momentum")
+    _, opt = train_step_fn(cfg)
+    images, y_true = dp_batch(EVAL_BATCH, 19,
+                              np.asarray(DEFAULT_ANCHORS, np.float32))
+    _, dets = make_eval_step(cfg)(fresh_state(opt, dev), images.to(dev),
+                                  tuple(y.to(dev) for y in y_true))
+    dets = to_host(dets)[0]
+    y_np = [y.numpy() for y in y_true]
+    pairs = []
+    for i in range(EVAL_BATCH):
+        valid = dets["valid"][i].astype(bool)
+        pairs.append((dets["boxes"][i][valid],
+                      extract_gt_from_y_true(y_np, i)[0]))
+    check(all(len(a) and len(b) for a, b in pairs),
+          "evaluate_batch timing: an image without detections or GT boxes")
+    check(native.available(), "the host library does not load here")
+    available = native.available
+
+    def metric(route):
+        native.available = (available if route == "native"
+                            else lambda: False)
+        try:
+            return evaluate_batch(dets, y_np, C, cfg.eval.eval_threshold)
+        finally:
+            native.available = available
+
+    check(metric("native") == metric("numpy"),
+          "evaluate_batch differs between the IoU routes")
+    runs = {"evaluate_batch native": lambda: metric("native"),
+            "evaluate_batch numpy": lambda: metric("numpy"),
+            "IoU native": lambda: [native.iou_matrix(a, b) for a, b in pairs],
+            "IoU numpy": lambda: [_iou_matrix(a, b) for a, b in pairs]}
+    ms = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        t0 = time.perf_counter()
+        runs[name]()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {name: min(v) for name, v in ms.items()}
+    print(f"evaluate_batch at the in-train evaluation's shapes (batch "
+          f"{EVAL_BATCH}, {SIZE}^2, COCO-80 seed-0 eval-step detections: "
+          f"{[len(a) for a, _ in pairs]} valid, {len(pairs[0][1])} GT "
+          f"boxes an image): {ms['evaluate_batch native']:.3f} ms a batch "
+          f"with the host library's IoU ({ms['IoU native']:.3f} ms of IoU "
+          f"matrices), {ms['evaluate_batch numpy']:.3f} ms with numpy's "
+          f"({ms['IoU numpy']:.3f} ms, "
+          f"{ms['IoU numpy'] / ms['evaluate_batch numpy']:.2%}); the same "
+          f"recall and precision (host clock) [{card}]")
+
+
 def experiments_phase(dev: torch.device, card: str, tmp: Path,
                       gate_dir: Path, gate_map: float, launches: dict,
-                      max_err: dict, packed_ms: float) -> None:
+                      max_err: dict, packed_ms: float) -> dict:
     """Phase 19: the serving experiments, the recipe-precision analyzer
-    and the host library (see the module docstring)."""
-    experiment_scripts(dev, card, tmp, launches, max_err, packed_ms)
+    and the host library (see the module docstring). Returns the
+    experiments' records by script."""
+    records = experiment_scripts(dev, card, tmp, launches, max_err,
+                                 packed_ms)
     recipe_and_native(dev, card, tmp, gate_dir, gate_map, launches)
+    eval_iou_share(dev, card)
+    return records
+
+
+def entry_program(dev: torch.device, card: str, launches: dict,
+                  max_err: dict) -> None:
+    """Phase 20, part 1: entry() on the card (its default device). The
+    example is JAX's (8 zero 416^2 images, float32 on the card); fn on it
+    and twice on a seeded batch of 8 keeps the contract (keys, shapes,
+    dtypes, finite boxes and scores) and launches the shared-candidate
+    kernel once a call (the launches join the kernel record's); that
+    kernel is bit-equal to its plain version on the program's own
+    candidates; make_entry_fn in fp32 on the card and on the CPU, on the
+    same seed-0 tree with the spread head (whose detections clear the
+    threshold), finds the same detections on 2 images (the fp32 GPU ==
+    CPU rule); the bf16 program on the card and on the CPU, printed. Then
+    fn's ms a call at batch 8 (differential_ms, host gaps included) with
+    its device busy time."""
+    from yolov3_tensorflow_tpu_torch import entry as E
+    from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS
+    from yolov3_tensorflow_tpu_torch.models.convert import spread_head
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import (fold_batch_norm,
+                                                           init_yolov3)
+    from yolov3_tensorflow_tpu_torch.ops import nms_cuda
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        decode_tables, pack_serving_head, packed_candidates,
+        yolov3_forward_packed)
+    from yolov3_tensorflow_tpu_torch.testing import match_detections
+    from yolov3_tensorflow_tpu_torch.utils.profiling import (device_busy_ms,
+                                                             differential_ms)
+    cpu = torch.device("cpu")
+    fn, example = E.entry()
+    check(len(example) == 1 and example[0].shape == (8, SIZE, SIZE, 3)
+          and example[0].dtype == torch.float32
+          and example[0].device == dev and not bool(example[0].any()),
+          f"entry()'s example: {[(tuple(x.shape), x.dtype, x.device) for x in example]}")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    images = torch.rand((8, SIZE, SIZE, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    nms_cuda.nms_keep_mask_shared.launches = 0
+    nms_cuda.nms_keep_mask.launches = 0
+    outs = [fn(*example), fn(images), fn(images)]
+    torch.cuda.synchronize()
+    k1, k2 = (nms_cuda.nms_keep_mask_shared.launches,
+              nms_cuda.nms_keep_mask.launches)
+    launches["nms_shared"] += k1
+    print(f"entry(): fn on its example and twice on a seeded batch of 8: "
+          f"nms_shared launched {k1} times, nms {k2}")
+    check((k1, k2) == (len(outs), 0),
+          f"entry()'s fn launched (nms_shared, nms) {(k1, k2)} times in "
+          f"{len(outs)} calls")
+    for out in outs:
+        check(set(out) == {"boxes", "scores", "labels", "valid"},
+              f"entry()'s fn returned keys {sorted(out)}")
+        check(out["boxes"].shape == (8, C * 128, 4)
+              and out["boxes"].dtype == torch.float32,
+              f"entry() boxes {tuple(out['boxes'].shape)} "
+              f"{out['boxes'].dtype}")
+        for key, dtype in (("scores", torch.float32), ("labels",
+                                                       torch.int32),
+                           ("valid", torch.bool)):
+            check(out[key].shape == (8, C * 128) and out[key].dtype == dtype,
+                  f"entry() {key} {tuple(out[key].shape)} {out[key].dtype}")
+        check(bool(torch.isfinite(out["boxes"]).all()
+                   and torch.isfinite(out["scores"]).all()),
+              "entry(): non-finite detections")
+    check(torch.equal(outs[1]["valid"], outs[2]["valid"])
+          and torch.equal(outs[1]["boxes"], outs[2]["boxes"]),
+          "entry()'s fn answered one batch two ways")
+    print(f"entry(): valid detections per image on the example "
+          f"{outs[0]['valid'].sum(1).tolist()}, on the seeded batch "
+          f"{outs[1]['valid'].sum(1).tolist()}")
+
+    # the kernel on the program's own candidates (calls for the comparison
+    # only: the count above is read)
+    v = init_yolov3(torch.Generator().manual_seed(0), C, device=cpu)
+    anchors = np.asarray(DEFAULT_ANCHORS, np.float32)
+    with torch.inference_mode():
+        packed = pack_serving_head(fold_batch_norm(to_device(v, dev),
+                                                   dtype=torch.bfloat16), C)
+        boxes, scores = packed_candidates(
+            yolov3_forward_packed(packed, images), C,
+            decode_tables((SIZE, SIZE), anchors, device=dev),
+            E.SERVING["box_topk"])
+        st, it = E.SERVING["score_thresh"], E.SERVING["iou_thresh"]
+        got = nms_cuda.nms_keep_mask_shared(boxes, scores, st, it)
+        want = nms_cuda.nms_keep_mask_shared_reference(boxes, scores, st, it)
+    err = float((got.float() - want.float()).abs().max())
+    max_err["nms_shared"] = max(max_err["nms_shared"], err)
+    print(f"entry(): nms_shared == plain on its candidates B=8 K="
+          f"{boxes.shape[1]} C={C}: {err == 0.0} (kept {int(want.sum())} of "
+          f"{int((scores >= st).sum())} valid)")
+    check(err == 0.0, "nms_shared keep masks differ on entry()'s candidates")
+
+    small = images[:2]
+    spread = spread_head(v, seed=0)
+    g32 = E.make_entry_fn(spread, dev, compute_dtype=torch.float32)(small)
+    c32 = E.make_entry_fn(spread, cpu, compute_dtype=torch.float32)(
+        small.cpu())
+    same_detections(detections(c32, 2), detections(g32, 2),
+                    E.SERVING["score_thresh"] + 0.02,
+                    "entry program (spread head) fp32 GPU vs fp32 CPU")
+    cb = detections(E.make_entry_fn(v, cpu)(small.cpu()), 2)
+    gb = detections({k: t[:2] for k, t in outs[1].items()}, 2)
+    print(f"entry program bf16 (the seed-0 tree): the card finds "
+          f"{match_detections(cb, gb, 0.0)[::-1]} of the CPU's detections, "
+          f"the CPU {match_detections(gb, cb, 0.0)[::-1]} of the card's "
+          f"(found, of)")
+
+    ms = differential_ms(lambda: fn(images), dev, *ENTRY_ITERS)
+    busy = device_busy_ms(lambda: fn(images), 5)
+    print(f"entry()'s fn at batch 8: {ms:.3f} ms a call (differential "
+          f"{ENTRY_ITERS}, host gaps included), {8e3 / ms:.1f} img/s; device "
+          f"busy {busy:.3f} ms, idle share {1 - busy / ms:.3f} [{card}]")
+
+
+def entry_dryruns(card: str, launches: dict, max_err: dict) -> None:
+    """Phase 20, part 2: dryrun_multichip over every card of this host
+    (NCCL, a card a rank), then over 2 ranks (gloo where they share a
+    card): finite losses, JAX's 99% rule on the sharded detections
+    against the single-device detector on the plain keep mask, with at
+    least one confident detection, the backend, the shared-candidate
+    kernel once a rank in the sharded detector (those launches join the
+    kernel record's) and equal to its plain version on every rank's
+    candidates (B=1, K=64, C=4; joining the record's max_abs_err)."""
+    from yolov3_tensorflow_tpu_torch import entry as E
+    cards = torch.cuda.device_count()
+    for n in sorted({cards, 2}):
+        want = "nccl" if cards >= n else "gloo"
+        t0 = time.perf_counter()
+        got = E.dryrun_multichip(n)
+        wall = time.perf_counter() - t0
+        print(f"dryrun_multichip({n}): {got} in {wall:.1f} s wall "
+              f"[{card}]")
+        check(got["backend"] == want,
+              f"dryrun_multichip({n}) ran over {got['backend']}, not {want}")
+        check(bool(np.isfinite(got["loss"]) and np.isfinite(got["loss_aug"])),
+              f"dryrun_multichip({n}): non-finite losses")
+        check(got["total"] > 0 and got["found"] >= E.FOUND_SHARE * got["total"],
+              f"dryrun_multichip({n}): {got['found']}/{got['total']} "
+              f"detections reproduced")
+        check(got["nms_shared_launches"] == n,
+              f"dryrun_multichip({n}): nms_shared launched "
+              f"{got['nms_shared_launches']} times over its ranks")
+        check(got["nms_shared_max_err"] == 0.0,
+              f"dryrun_multichip({n}): nms_shared differs from its plain "
+              f"version by {got['nms_shared_max_err']}")
+        launches["nms_shared"] += got["nms_shared_launches"]
+        max_err["nms_shared"] = max(max_err["nms_shared"],
+                                    got["nms_shared_max_err"])
+
+
+def busy_checks(dev: torch.device, card: str, tmp: Path,
+                records: dict) -> None:
+    """Phase 20, part 3: the device busy time inside this long process
+    (utils.profiling.device_busy_ms). Every K1 row of phase 19's exp_tail
+    reads a busy time above 0; phase 19's exp_pp_incr forward-only row at
+    batch 128 has the idle share (1 - busy / ms) of the same script run
+    alone in a fresh process, within IDLE_ALONE_TOL; and a device-bound
+    call, the packed forward at batch 128, reads a busy time within
+    BUSY_DEVICE_TOL of its device time alone (cuda_ms)."""
+    from yolov3_tensorflow_tpu_torch.models.yolov3 import (fold_batch_norm,
+                                                           init_yolov3)
+    from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
+        pack_serving_head, yolov3_forward_packed)
+    from yolov3_tensorflow_tpu_torch.utils.profiling import (cuda_ms,
+                                                             device_busy_ms)
+    k1_rows = [r for r in records["exp_tail"]["rows"]
+               if r["name"].startswith("K1")]
+    print("exp_tail's K1 rows in phase 19: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms, busy {r['busy_ms']:.4f} ms"
+        for r in k1_rows) + f" [{card}]")
+    check(bool(k1_rows) and all(r["busy_ms"] > 0 for r in k1_rows),
+          "a K1 row of exp_tail read no device busy time")
+    path = tmp / "exp_pp_incr_alone.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "yolov3_tensorflow_tpu_torch.scripts."
+         "exp_pp_incr", *EXP_ARGS["exp_pp_incr"], "--out", str(path)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"exp_pp_incr alone exited {proc.returncode}: {proc.stderr[-2000:]}")
+    alone = json.loads(path.read_text())
+
+    def idle(record):
+        row = next(r for r in record["rows"] if r["name"] == "fwd only")
+        return row, 1 - row["busy_ms"] / row["ms"]
+
+    (here, i_here), (there, i_there) = idle(records["exp_pp_incr"]), idle(
+        alone)
+    print(f"exp_pp_incr fwd only at batch {ROOF_BATCH}: in this process "
+          f"{here['ms']:.3f} ms, busy {here['busy_ms']:.3f} ms, idle share "
+          f"{i_here:.4f}; alone ({time.perf_counter() - t0:.1f} s) "
+          f"{there['ms']:.3f} ms, busy {there['busy_ms']:.3f} ms, idle share "
+          f"{i_there:.4f} [{card}]")
+    check(abs(i_here - i_there) <= IDLE_ALONE_TOL,
+          f"the forward's idle share {i_here:.4f} here and {i_there:.4f} "
+          f"alone differ by more than {IDLE_ALONE_TOL}")
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    with torch.inference_mode():
+        packed = pack_serving_head(fold_batch_norm(init_yolov3(
+            torch.Generator().manual_seed(0), C, device=dev),
+            dtype=torch.bfloat16), C)
+        images = torch.rand((ROOF_BATCH, SIZE, SIZE, 3), generator=gen,
+                            device=dev)
+
+        def fwd():
+            return yolov3_forward_packed(packed, images)
+
+        alone_ms = cuda_ms(fwd, BUSY_DEVICE_ITERS)
+        busy = device_busy_ms(fwd, BUSY_DEVICE_ITERS)
+    print(f"packed forward at batch {ROOF_BATCH}: device time alone "
+          f"{alone_ms:.3f} ms (cuda_ms), busy {busy:.3f} ms, busy / device "
+          f"{busy / alone_ms:.4f} [{card}]")
+    check(abs(busy - alone_ms) <= BUSY_DEVICE_TOL * alone_ms,
+          f"the forward's busy time {busy:.3f} ms is not within "
+          f"{BUSY_DEVICE_TOL} of its device time {alone_ms:.3f} ms")
+
+
+def entry_phase(dev: torch.device, card: str, tmp: Path, launches: dict,
+                max_err: dict, records: dict) -> None:
+    """Phase 20: the graft entry points (see the module docstring)."""
+    entry_program(dev, card, launches, max_err)
+    entry_dryruns(card, launches, max_err)
+    busy_checks(dev, card, tmp, records)
 
 
 def main() -> int:
@@ -3751,14 +4068,20 @@ def main() -> int:
 
     # ---- 19. the serving experiments, the analyzer, the host library ----
     t0 = time.perf_counter()
-    experiments_phase(dev, card, tmp, gate_dir, gate_map, launches, max_err,
-                      timings[ROOF_BATCH])
-    tmp_dir.cleanup()
+    records = experiments_phase(dev, card, tmp, gate_dir, gate_map, launches,
+                                max_err, timings[ROOF_BATCH])
     print(f"serving experiments, analyzer and host library: "
           f"{time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 20. records -----------------------------------------------------
+    # ---- 20. the graft entry points ---------------------------------------
+    t0 = time.perf_counter()
+    entry_phase(dev, card, tmp, launches, max_err, records)
+    tmp_dir.cleanup()
+    print(f"the graft entry points: {time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
+
+    # ---- 21. records -----------------------------------------------------
     extra = {"nms_shared": {"p50_k128": k128}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
@@ -3775,5 +4098,28 @@ def main() -> int:
     return 0
 
 
+def exit_now(code) -> None:
+    """Flush and end the process with `code` (SystemExit's meaning),
+    skipping the interpreter's and the C++ runtime's exit handlers: on the
+    H100 machine a process that had torn down and re-initialised CUPTI
+    (utils.profiling.device_events) after NCCL and spawned CUDA ranks hung
+    in them for over 10 minutes after its last line. Every process this
+    script starts has ended by then."""
+    if code is None:
+        code = 0
+    elif not isinstance(code, int):
+        print(code, file=sys.stderr)
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        exit_now(main())
+    except SystemExit as e:
+        exit_now(e.code)
+    except Exception:                   # a failed phase: its traceback, rc 1
+        traceback.print_exc()
+        exit_now(1)

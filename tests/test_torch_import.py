@@ -47,7 +47,8 @@ def test_every_module_imports_with_jax_blocked():
                  "scripts.exp_topk", "scripts.exp_tail",
                  "scripts.exp_pp_incr", "scripts.exp_postprocess",
                  "scripts.exp_stem_int8", "scripts.exp_highres_int8",
-                 "scripts.analyze_recipe_precision", "utils.native"):
+                 "scripts.analyze_recipe_precision", "utils.native",
+                 "entry"):
         assert f"yolov3_tensorflow_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "for blocked in ('jax', 'optax', 'orbax'):\n"

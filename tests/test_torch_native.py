@@ -2,15 +2,17 @@
 `csrc/postprocess.cc`) against the numpy oracles, on the CPU: greedy NMS
 against `ops.nms.py_nms` at both pixel offsets, per-class NMS against
 `cpu_nms`, the IoU matrix against JAX's `evaluation/metrics.py:
-_iou_matrix`; built under build/ (never into the JAX package's native/);
-and no fallback where the compiler is missing. Skips where no C++
-compiler exists, as tests/test_native.py does."""
+_iou_matrix`; `evaluation.metrics.iou_matrix`'s two routes (the library
+where it loads, numpy where not) bit-equal; built under build/ (never into
+the JAX package's native/); no fallback where the compiler is missing;
+and a failing compiler started once a process on the metrics' route.
+Skips where no C++ compiler exists, as tests/test_native.py does."""
 
 import numpy as np
 import pytest
 
 from yolov3_tensorflow_tpu.evaluation.metrics import _iou_matrix
-from yolov3_tensorflow_tpu_torch.evaluation.metrics import iou_matrix
+from yolov3_tensorflow_tpu_torch.evaluation import metrics
 from yolov3_tensorflow_tpu_torch.ops.nms import cpu_nms, py_nms
 from yolov3_tensorflow_tpu_torch.utils import kernels, native
 
@@ -70,11 +72,30 @@ def test_iou_matrix_matches_jax(lib):
     a, b = _random_boxes(rng, 150, 400.0), _random_boxes(rng, 50, 400.0)
     got = native.iou_matrix(a, b)
     np.testing.assert_array_equal(got, _iou_matrix(a, b))
-    np.testing.assert_array_equal(got, iou_matrix(a, b))
+    np.testing.assert_array_equal(got, metrics._iou_matrix(a, b))
     one = native.iou_matrix(np.array([[0, 0, 10, 10]], np.float32),
                             np.array([[0, 0, 10, 10], [5, 5, 15, 15],
                                       [20, 20, 30, 30]], np.float32))
     np.testing.assert_allclose(one[0], [1.0, 25 / 175, 0.0], rtol=1e-6)
+
+
+def test_metrics_iou_routes_give_the_same_bits(lib, monkeypatch):
+    """evaluation.metrics.iou_matrix takes the library where it loads and
+    numpy where it does not, as the JAX package's does: the same bits on
+    random boxes (the in-train evaluation's shapes: many detections, few
+    ground-truth boxes)."""
+    rng = np.random.RandomState(7)
+    a, b = _random_boxes(rng, 2000, 416.0), _random_boxes(rng, 4, 416.0)
+    calls, library = [], native.iou_matrix
+    monkeypatch.setattr(native, "iou_matrix",
+                        lambda *args: calls.append(1) or library(*args))
+    got = metrics.iou_matrix(a, b)
+    assert calls == [1]
+    monkeypatch.setattr(native, "available", lambda: False)
+    want = metrics.iou_matrix(a, b)
+    assert calls == [1]
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
 
 
 def test_self_test(lib):
@@ -98,3 +119,20 @@ def test_missing_compiler_raises(lib, monkeypatch):
     with pytest.raises(RuntimeError, match="/nonexistent/bin/c"):
         native.iou_matrix(boxes, boxes)
     assert not native.available()
+
+
+def test_failed_build_is_tried_once(tmp_path, monkeypatch):
+    """Where the compiler runs but fails, evaluation.metrics.iou_matrix
+    starts it at most once a process and answers with numpy's bits on
+    every call."""
+    log = tmp_path / "runs"
+    cxx = tmp_path / "failing-c++"
+    cxx.write_text(f"#!/bin/sh\necho run >> {log}\nexit 1\n")
+    cxx.chmod(0o755)
+    monkeypatch.setenv("CXX", str(cxx))
+    rng = np.random.RandomState(3)
+    for _ in range(3):
+        a, b = _random_boxes(rng, 40, 416.0), _random_boxes(rng, 4, 416.0)
+        np.testing.assert_array_equal(metrics.iou_matrix(a, b),
+                                      metrics._iou_matrix(a, b))
+    assert log.read_text().splitlines() == ["run"]

@@ -16,6 +16,7 @@ the CPU.
 import glob
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -94,6 +95,95 @@ def test_device_busy_counts_overlapping_work_once(spans, want):
     assert profiling.union_length(spans) == want
 
 
+SPIN = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+
+
+MARK = profiling.MARK_MS * 1e3
+SPAN = 2 * MARK + 9                       # the markers and the calls, us
+
+
+def _events(guard_us, lead=True, trail=True, stretch=1.0):
+    """A profiler session's device events as `_session` sees them: the
+    guard spin, a marker, two calls' kernels (one overlapping a copy), a
+    marker, SPAN us from the first marker's start to the second's end on
+    the device; the profiler's clock runs `stretch` times the device's."""
+    t0 = guard_us
+    ev = [(SPIN, 0.0, guard_us)]
+    spans = [("k", MARK + 1, MARK + 4), ("copy", MARK + 3, MARK + 5),
+             ("k", MARK + 7, MARK + 8)]
+    if lead:
+        spans.insert(0, (SPIN, 0.0, MARK))
+    if trail:
+        spans.append((SPIN, MARK + 9, SPAN))
+    ev += [(name, t0 + lo * stretch, t0 + hi * stretch)
+           for name, lo, hi in spans]
+    return ev
+
+
+@pytest.mark.parametrize("lead,trail", [(True, True), (False, True),
+                                        (True, False), (False, False)])
+def test_marked_events_need_both_markers(lead, trail):
+    guard = 40e3
+    got = profiling.marked_events(_events(guard, lead, trail), guard, SPAN)
+    if lead and trail:
+        assert [e[0] for e in got] == ["k", "copy", "k"]
+    else:
+        assert got is None
+    # a session whose guard was dropped, markers kept, is whole
+    assert profiling.marked_events(_events(guard)[1:], guard, SPAN) \
+        is not None
+
+
+def test_marked_events_rescale_to_the_device_clock():
+    """A profiler clock running 3% fast stretches every span by 3%; the
+    device's time across the markers takes it back."""
+    guard = 40e3
+    got = profiling.marked_events(_events(guard, stretch=1.03), guard, SPAN)
+    spans = [(lo - guard - MARK, hi - guard - MARK) for _, lo, hi in got]
+    np.testing.assert_allclose(spans, [(1, 4), (3, 5), (7, 8)], atol=1e-6)
+    assert profiling.union_length(spans) == pytest.approx(5.0)
+
+
+def _stub_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+
+
+def test_device_events_rerun_with_a_longer_guard(monkeypatch):
+    """A session that lost a marker runs again with a guard GUARD_GROWTH
+    times longer; the busy time is the union of the session's events
+    (without the spins, on the device's clock) per call."""
+    _stub_cuda(monkeypatch)
+    guards = []
+
+    def session(fn, iters, guard_ms, record_ranges):
+        guards.append(guard_ms)
+        return (_events(guard_ms * 1e3, lead=len(guards) > 1, stretch=1.1),
+                SPAN / 1e3)
+
+    monkeypatch.setattr(profiling, "_session", session)
+    calls = []
+    assert profiling.device_busy_ms(lambda: calls.append(1), 2) == \
+        pytest.approx(5.0 / 1e3 / 2)
+    assert calls == [1, 1, 1]             # the untimed calls
+    assert guards == [profiling.GUARD_MS,
+                      profiling.GUARD_MS * profiling.GUARD_GROWTH]
+
+
+def test_device_events_raise_when_every_session_loses_a_marker(monkeypatch):
+    _stub_cuda(monkeypatch)
+    guards = []
+
+    def session(fn, iters, guard_ms, record_ranges):
+        guards.append(guard_ms)
+        return _events(guard_ms * 1e3, trail=False), SPAN / 1e3
+
+    monkeypatch.setattr(profiling, "_session", session)
+    with pytest.raises(RuntimeError, match="dropped"):
+        profiling.device_events(lambda: None, 1)
+    assert len(guards) == profiling.SESSION_TRIES
+
+
 @pytest.fixture(scope="module")
 def routes():
     """(JAX routes, port folded params, images) at 64^2, fp32."""
@@ -154,6 +244,59 @@ def test_k1_phases_from_stamps():
                               "classes": 1.025, "exit": 0.15}
     assert got["max_us"] == {"load": 1.0, "mask": 1.0, "share": 0.5,
                              "classes": 2.0, "exit": 0.25}
+
+
+def test_stage_hold_follows_the_call_host_time(monkeypatch):
+    """profile_stages.stage_ms times through cuda_ms, which holds the
+    stream for twice a call's host-inclusive time (at least
+    HOST_MS_PER_CALL): a call whose host time is long gets a longer _sleep
+    than a short one. torch.cuda is stubbed: the device is present, events
+    read 0 ms, _sleep records its cycles."""
+    holds = []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 0.0
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", holds.append)
+    iters = 4
+    for host_s in (0.0, 0.004, 0.020):
+        profile_stages.stage_ms("stage", lambda s=host_s: time.sleep(s),
+                                iters)
+    floor, short, long = holds
+    # cycles at 2 GHz: iters * hold ms * 2e6; a host sleep lasts at least
+    # what it asks for
+    assert int(iters * profiling.HOST_MS_PER_CALL * 2e6) <= floor < short
+    assert short < long
+    assert short >= int(iters * 2 * 4.0 * 2e6)
+    assert long >= int(iters * 2 * 20.0 * 2e6)
+
+
+def test_differential_ms_takes_the_least_of_each_total(monkeypatch):
+    """Noise in one short run does not pull the differential low: each
+    total T(n) is the least of its readings before the difference. On a
+    host clock where every call takes 1 ms and the first call of the
+    first T(2) 5 ms more, the least of the differences would read
+    (6 - 7) / 4 < 0 ms; the least of each total reads 1 ms."""
+    clock, calls = [0.0], [0]
+
+    def fn():
+        calls[0] += 1
+        clock[0] += 1e-3 + (5e-3 if calls[0] == 2 else 0.0)
+
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: clock[0])
+    ms = profiling.differential_ms(fn, CPU, 2, 6)
+    assert calls[0] == 1 + 3 * (2 + 6)
+    assert ms == pytest.approx(1.0, rel=1e-9)
 
 
 def test_profile_needs_a_gpu():

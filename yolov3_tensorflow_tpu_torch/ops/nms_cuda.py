@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -192,18 +192,23 @@ def bind_shared(lib: ctypes.CDLL):
 
 def batched_nms_shared(boxes: torch.Tensor, scores: torch.Tensor, *,
                        max_out: int = 50, score_thresh: float = 0.5,
-                       iou_thresh: float = 0.5) -> Dict[str, torch.Tensor]:
+                       iou_thresh: float = 0.5,
+                       keep_mask: Optional[Callable[..., torch.Tensor]] = None
+                       ) -> Dict[str, torch.Tensor]:
     """Per-class NMS where every class scores the SAME candidate boxes.
 
     boxes [B, K, 4], scores [B, K, C] -> dict of [B, C*max_out, ...]
     ("boxes", "scores", "labels" int32, "valid" bool); the slots of class c
     are rows [c*max_out, (c+1)*max_out). When max_out >= K every kept
     candidate is emitted in candidate order; otherwise each class keeps its
-    max_out best (score-descending, ties to the lower index).
+    max_out best (score-descending, ties to the lower index). keep_mask
+    computes the keep masks (default `nms_keep_mask_shared`; a reference
+    passes `nms_keep_mask_shared_reference` to stay off the kernel).
     """
     b, k, _ = boxes.shape
     c = scores.shape[2]
-    keep = nms_keep_mask_shared(boxes, scores, score_thresh, iou_thresh)
+    keep = (keep_mask or nms_keep_mask_shared)(boxes, scores, score_thresh,
+                                               iou_thresh)
     scores_ck = scores.transpose(1, 2)                          # [B, C, K]
     all_boxes = boxes[:, None].expand(b, c, k, 4)
     labels = torch.arange(c, dtype=torch.int32, device=boxes.device)

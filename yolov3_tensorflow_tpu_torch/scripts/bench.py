@@ -31,7 +31,7 @@ is ~0.25):
   best batch, each of P50_CALLS calls timed alone, the median reported.
 
 Timing: `utils.profiling.differential_ms` per detector ((T(n2) - T(n1)) /
-(n2 - n1), the least of 3, torch.cuda.synchronize as the sync; n1, n2
+(n2 - n1), each T the least of 3, torch.cuda.synchronize as the sync; n1, n2
 from `--iters`), which is a call's cost with the host's gaps included;
 beside it the device's busy time per call (`device_busy_ms`), which shows
 where the host sets the pace. `--device cpu` (for the tests) times the
@@ -164,7 +164,7 @@ def _busy_text(row: Dict) -> str:
     if row["busy_ms"] is None:
         return "device busy not measured on the CPU"
     return (f"device busy {row['busy_ms']:.3f} ms/batch, idle share "
-            f"{max(0.0, 1 - row['busy_ms'] / row['ms']):.3f}")
+            f"{1 - row['busy_ms'] / row['ms']:.3f}")
 
 
 def run(size: Tuple[int, int], batches: List[int], iters: Tuple[int, int],

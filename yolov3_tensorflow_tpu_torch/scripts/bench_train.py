@@ -125,7 +125,7 @@ def bench_batch(cfg: Config, step, optimizer, batch: int, size: int,
             "mfu_vs_bf16_peak": mfu,
             "busy_ms": None if busy is None else round(busy, 3),
             "idle_share": (None if busy is None
-                           else round(max(0.0, 1 - busy / (dt * 1e3)), 3))}
+                           else round(1 - busy / (dt * 1e3), 3))}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -11,10 +11,11 @@ CUDA where there is none exits, nothing falls back to the CPU), on
 A row is `utils.profiling.differential_ms` with `--iters n1,n2` (a call's
 cost, host gaps included; no scalar is fed back through the calls as in
 the JAX scripts: eager PyTorch elides no call), with the device's busy
-time per call (`device_busy_ms`) and the idle share beside it, and, for a
-stage timed alone, the device's own time (`cuda_ms`, the stream held for
-twice the call's differential time while the host queues the calls). Off the card only
-the host's time is written: busy, idle and device time are null. A row
+time per call (`device_busy_ms`) and the idle share 1 - busy / ms beside
+it, with its sign (below 0 where the differential reads below the busy
+time), and, for a stage timed alone, the device's own time (`cuda_ms`).
+Off the card only the host's time is written: busy, idle and device time
+are null. A row
 counts its calls, and those of them that launch the shared-candidate NMS
 kernel (K1), so that a caller can hold the kernel's launch count to them.
 A JAX variant with no counterpart in the port is a row with no number
@@ -38,8 +39,7 @@ from yolov3_tensorflow_tpu_torch.cli.common import device_name, resolve_device
 from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import \
     yolov3_forward_packed
 from yolov3_tensorflow_tpu_torch.scripts import bench
-from yolov3_tensorflow_tpu_torch.utils.profiling import (HOST_MS_PER_CALL,
-                                                         cuda_ms,
+from yolov3_tensorflow_tpu_torch.utils.profiling import (cuda_ms,
                                                          device_busy_ms,
                                                          differential_ms)
 
@@ -108,13 +108,9 @@ class Run:
 
         ms = differential_ms(call, self.device, *self.iters)
         busy = device_busy_ms(call, BUSY_ITERS) if self.cuda else None
-        # hold the stream for twice the call's host-inclusive time, so that
-        # a call with many launches is queued whole before the clock starts
-        dev = (cuda_ms(call, DEVICE_ITERS, max(HOST_MS_PER_CALL, 2 * ms))
-               if self.cuda and alone else None)
+        dev = cuda_ms(call, DEVICE_ITERS) if self.cuda and alone else None
         row = {"name": name, "ms": ms, "busy_ms": busy,
-               "idle_share": None if busy is None else max(0.0,
-                                                           1 - busy / ms),
+               "idle_share": None if busy is None else 1 - busy / ms,
                "device_ms": dev, "calls": calls[0],
                "nms_calls": calls[0] if nms else 0, **extra}
         if batch is not None:

@@ -40,7 +40,7 @@ Usage (on a machine with an NVIDIA GPU):
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +118,14 @@ def _top(scores: torch.Tensor, k: int) -> torch.Tensor:
                       stable=True).indices[:, :k]
 
 
+def stage_ms(name: str, fn: Callable[[], Any], iters: int) -> float:
+    """Mean device milliseconds of fn() alone (`cuda_ms`, which holds the
+    stream for twice the call's host-inclusive time) inside the
+    annotation `name`."""
+    with annotate(name):
+        return cuda_ms(fn, iters)
+
+
 def profile(variables: dict, batch: int, size: Tuple[int, int], *,
             device: torch.device) -> Dict:
     """Time every stage and probe at this batch and size on `device` (a
@@ -140,10 +148,6 @@ def profile(variables: dict, batch: int, size: Tuple[int, int], *,
     images = torch.rand((batch, img_h, img_w, 3), generator=gen,
                         device=device)
     out: Dict[str, List] = {"stages": [], "copy": [], "stem": []}
-
-    def timed(name: str, fn, iters: int) -> float:
-        with annotate(name):
-            return cuda_ms(fn, iters)
 
     with torch.inference_mode():
         fmaps = yolov3_forward_folded(folded, images)
@@ -173,7 +177,7 @@ def profile(variables: dict, batch: int, size: Tuple[int, int], *,
                                box_topk=64, score_thresh=0.3,
                                iou_thresh=0.45, tables=tables), 10))
         for name, fn, iters in stages:
-            out["stages"].append((name, timed(name, fn, iters)))
+            out["stages"].append((name, stage_ms(name, fn, iters)))
 
         for name, shape in ((f"narrow [b,{img_h},{img_w},32]",
                              (batch, img_h, img_w, 32)),
@@ -181,13 +185,14 @@ def profile(variables: dict, batch: int, size: Tuple[int, int], *,
                              (batch, img_h // 2, img_w // 2, 128))):
             x = torch.zeros(shape, dtype=torch.bfloat16, device=device)
             y = torch.empty_like(x)
-            ms = timed(f"copy {name}", lambda: torch.add(x, 1.0, out=y), 10)
+            ms = stage_ms(f"copy {name}", lambda: torch.add(x, 1.0, out=y),
+                          10)
             out["copy"].append((name, ms, 2 * x.numel() * 2 / (ms * 1e-3)
                                 / 1e9))
             del x, y
 
         for upto in STEM_UPTO:
-            out["stem"].append((upto, timed(
+            out["stem"].append((upto, stage_ms(
                 f"stem conv_0..conv_{upto - 1}",
                 lambda u=upto: stem_forward(folded, images, u), 5)))
     return out

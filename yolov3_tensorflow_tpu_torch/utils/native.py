@@ -8,10 +8,11 @@ keep the JAX functions' contracts, but where the library cannot be built
 or loaded they raise, naming the compiler: there is no numpy fallback
 inside them. `available()` says whether the library loads.
 
-`evaluation/metrics.py` keeps its numpy IoU; nothing in the port calls
-this library on its own. `python -m yolov3_tensorflow_tpu_torch.utils.
-native` builds it and checks it against the numpy oracles
-(`ops.nms.py_nms`, `ops.nms.cpu_nms`, `evaluation.metrics.iou_matrix`).
+`evaluation/metrics.py:iou_matrix` prefers its `iou_matrix` where
+`available()`, as the JAX package's does. `python -m
+yolov3_tensorflow_tpu_torch.utils.native` builds it and checks it against
+the numpy oracles (`ops.nms.py_nms`, `ops.nms.cpu_nms`,
+`evaluation.metrics._iou_matrix`).
 """
 
 from __future__ import annotations
@@ -72,9 +73,17 @@ def load() -> ctypes.CDLL:
 
 
 def available() -> bool:
-    """Whether the library builds and loads here (for tests' skips)."""
+    """Whether the library builds and loads here with the compiler that
+    `$CXX` names (else g++). Each compiler is tried once a process and its
+    answer kept, a failure too, so that a caller that asks before every
+    call (`evaluation.metrics.iou_matrix`) starts no second build."""
+    return _loads(_compiler())
+
+
+@functools.lru_cache(maxsize=None)
+def _loads(compiler: str) -> bool:
     try:
-        load()
+        _open(compiler)
     except RuntimeError:
         return False
     return True
@@ -143,10 +152,10 @@ def iou_matrix(a: np.ndarray, b: np.ndarray,
 def self_test(seed: int = 0) -> None:
     """The library against the numpy oracles on seeded boxes: NMS at both
     pixel offsets equal to `py_nms`, per-class NMS to `cpu_nms`, the IoU
-    matrix to `evaluation.metrics.iou_matrix`, bit for bit. Raises
+    matrix to `evaluation.metrics._iou_matrix`, bit for bit. Raises
     AssertionError on a difference."""
     from yolov3_tensorflow_tpu_torch.evaluation.metrics import \
-        iou_matrix as numpy_iou
+        _iou_matrix as numpy_iou
     from yolov3_tensorflow_tpu_torch.ops.nms import cpu_nms, py_nms
     rng = np.random.default_rng(seed)
 

@@ -13,13 +13,18 @@ Counterpart of `yolov3_tensorflow_tpu/utils/profiling.py`:
 - `differential_ms` and `call_samples_ms`: a callable's time per call, host
   gaps included, for the measurement scripts (`scripts.bench`,
   `bench_train`, `profile_train`).
+- `device_events` and `device_busy_ms`: every device event of a callable's
+  calls from one torch.profiler session, whole and on the device's clock
+  however late in the process, and the device's busy time per call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Any, Callable, Dict, Iterator, List, Set
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Set, Tuple)
 
 import numpy as np
 import torch
@@ -106,31 +111,38 @@ def annotate(name: str) -> Iterator[None]:
         yield
 
 
-# Host time allowed per call when queueing a timed run (see cuda_ms): a
-# kernel of tens of microseconds takes about as long to launch from Python.
+# The least host time allowed per call when queueing a timed run (see
+# cuda_ms): a kernel of tens of microseconds takes about as long to launch
+# from Python.
 HOST_MS_PER_CALL = 0.25
 
 
-def cuda_ms(fn: Callable[[], Any], iters: int,
-            host_ms_per_call: float = HOST_MS_PER_CALL) -> float:
+def cuda_ms(fn: Callable[[], Any], iters: int) -> float:
     """Mean device milliseconds of fn() over `iters` back-to-back calls,
     after 3 untimed calls, from CUDA events on the current stream.
 
-    Before the timed calls the stream spins (a sleep kernel of at least
-    iters * host_ms_per_call ms: its cycle count assumes no clock above
-    2 GHz) while the host enqueues them, so the reading is the device's
-    time alone, without the gaps the host leaves when a call is shorter
-    than its launch cost. A call whose host time exceeds host_ms_per_call
-    needs a larger value, or the device waits inside the timed span.
+    Before the timed calls the stream spins (a sleep kernel whose cycle
+    count assumes no clock above 2 GHz) while the host enqueues them, so
+    the reading is the device's time alone, without the gaps the host
+    leaves when a call is shorter than its launch cost. The spin lasts
+    `iters` times twice the last untimed call's host-inclusive time (the
+    host clock from the call to a synchronize after it), at least
+    HOST_MS_PER_CALL a call, so that a call of many launches is queued
+    whole before the clock starts.
 
     Needs a CUDA device: it raises rather than time the CPU."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_ms times the GPU: no CUDA device here")
-    for _ in range(3):
+    for _ in range(2):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_ms = max(HOST_MS_PER_CALL, 2e3 * (time.perf_counter() - t0))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(iters * host_ms_per_call * 2e6))
+    torch.cuda._sleep(int(iters * hold_ms * 2e6))
     start.record()
     for _ in range(iters):
         fn()
@@ -155,11 +167,13 @@ def differential_ms(fn: Callable[[], Any], device: torch.device, n1: int,
     """Milliseconds per call of fn() on `device`, host gaps included:
     (T(n2) - T(n1)) / (n2 - n1), where T(n) is the host clock around n
     back-to-back calls and one final sync (torch.cuda.synchronize; none on
-    the CPU), the least of `reps` such differentials after one untimed
-    call. The difference cancels the fixed cost of the sync; noise only
-    ever adds time, hence the least. (The JAX scripts' chained
-    differentials, without the scalar they fed back through each call:
-    eager PyTorch elides no call.)"""
+    the CPU), each T the least of `reps` readings after one untimed call.
+    The difference cancels the fixed cost of the sync; noise only ever
+    adds time, hence the least of each T. (The JAX scripts take the least
+    of `reps` differences instead, which noise in a T(n1) pulls low: at
+    n1, n2 = 2, 6 it read a device-bound call up to 7% under its busy time
+    on the H100, and once at 0. Their chained differentials also feed a
+    scalar back through each call: eager PyTorch elides no call.)"""
     if not 0 < n1 < n2:
         raise ValueError(f"differential_ms needs 0 < n1 < n2, got {n1}, {n2}")
     sync = _sync_of(device)
@@ -173,12 +187,11 @@ def differential_ms(fn: Callable[[], Any], device: torch.device, n1: int,
         sync()
         return time.perf_counter() - t0
 
-    diffs = []
+    t1 = t2 = float("inf")
     for _ in range(reps):
-        t1 = run(n1)
-        t2 = run(n2)
-        diffs.append((t2 - t1) / (n2 - n1))
-    return max(min(diffs), 1e-9) * 1e3
+        t1 = min(t1, run(n1))
+        t2 = min(t2, run(n2))
+    return max((t2 - t1) / (n2 - n1), 1e-9) * 1e3
 
 
 def call_samples_ms(fn: Callable[[], Any], device: torch.device,
@@ -209,26 +222,124 @@ def call_samples_ms(fn: Callable[[], Any], device: torch.device,
     return out
 
 
-def device_busy_ms(fn: Callable[[], Any], iters: int) -> float:
-    """Mean milliseconds per call of fn() during which the GPU ran
-    something (kernels, copies): the union of the device intervals that
-    torch.profiler records over `iters` calls, after 3 untimed calls.
-    Beside a `cuda_ms` reading of a whole pipeline it shows how much of
-    the call the device waited for the host. Needs a CUDA device."""
+# device_events' profiler session. On the H100 machines torch.profiler
+# (Kineto over CUPTI) stamped device events ever further off the host
+# clock as a process aged (CUPTI maps its device timestamps to the host
+# clock when it starts, and the two drifted apart by up to seconds, faster
+# after the host idled), and dropped the events that fell outside its
+# capture window: a busy time read low, or 0 for a short call. So CUPTI
+# is torn down after each session (TEARDOWN_CUPTI=1 while it runs) and
+# maps its clock afresh in the next; a spin of GUARD_MS on the device
+# opens the session and as long a wait on the host closes it; and two
+# marker kernels (spins of MARK_MS) bracket the timed calls: a session
+# whose events lack a marker runs again with a guard GUARD_GROWTH times
+# longer, SESSION_TRIES times in all, and then raises. CUDA events before
+# the first marker and after the second give the device's time across
+# them, to which the session's timestamps are rescaled (the profiler's
+# clock also ran a few percent off the device's).
+SPIN_KERNEL = "spin_kernel"            # torch.cuda._sleep's kernel
+GUARD_MS = 40.0
+GUARD_GROWTH = 4
+SESSION_TRIES = 4
+MARK_MS = 2.0
+
+
+def device_events(fn: Callable[[], Any], iters: int, *,
+                  record_ranges: bool = False
+                  ) -> List[Tuple[str, float, float]]:
+    """(name, start us, end us) of every device event (kernels, copies)
+    that torch.profiler records over `iters` calls of fn(), after 3
+    untimed calls: all of them, on the device's clock (see the comment
+    above). record_ranges=True also profiles the host, so that each
+    `record_function` range inside fn shows as a device event of its name
+    spanning the kernels launched in it. fn must not launch
+    torch.cuda._sleep itself (its spin kernel marks the calls). Needs a
+    CUDA device."""
     if not torch.cuda.is_available():
-        raise RuntimeError("device_busy_ms times the GPU: no CUDA device "
+        raise RuntimeError("device_events traces the GPU: no CUDA device "
                            "here")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return union_length(spans) / 1e3 / iters
+    guard_ms = GUARD_MS
+    for _ in range(SESSION_TRIES):
+        events, span_ms = _session(fn, iters, guard_ms, record_ranges)
+        events = marked_events(events, guard_ms * 1e3, span_ms * 1e3)
+        if events is not None:
+            return events
+        guard_ms *= GUARD_GROWTH
+    raise RuntimeError(
+        f"torch.profiler dropped the calls' device events in {SESSION_TRIES} "
+        f"sessions (guards up to {guard_ms / GUARD_GROWTH:.0f} ms)")
+
+
+def device_busy_ms(fn: Callable[[], Any], iters: int) -> float:
+    """Mean milliseconds per call of fn() during which the GPU ran
+    something (kernels, copies): the union of the device intervals of
+    `device_events` over `iters` calls. Beside a `cuda_ms` reading of a
+    whole pipeline it shows how much of the call the device waited for
+    the host. Needs a CUDA device."""
+    return union_length([(lo, hi) for _, lo, hi in device_events(
+        fn, iters)]) / 1e3 / iters
+
+
+def _session(fn: Callable[[], Any], iters: int, guard_ms: float,
+             record_ranges: bool
+             ) -> Tuple[List[Tuple[str, float, float]], float]:
+    """One profiler session: a spin of guard_ms, a CUDA event, a marker,
+    `iters` calls of fn(), a marker, a CUDA event, then guard_ms on the
+    host before the session ends, CUPTI torn down at its end. Returns
+    ((name, start us, end us) of every device event, the ms between the
+    two CUDA events)."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if record_ranges:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    mark = int(MARK_MS * 2e6)
+    before = os.environ.get("TEARDOWN_CUPTI")
+    os.environ["TEARDOWN_CUPTI"] = "1"
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            torch.cuda._sleep(int(guard_ms * 2e6))
+            start.record()
+            torch.cuda._sleep(mark)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(mark)
+            end.record()
+            torch.cuda.synchronize()
+            until = time.perf_counter() + guard_ms / 1e3
+            while time.perf_counter() < until:
+                pass
+    finally:
+        if before is None:
+            del os.environ["TEARDOWN_CUPTI"]
+        else:
+            os.environ["TEARDOWN_CUPTI"] = before
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return events, start.elapsed_time(end)
+
+
+def marked_events(events: Sequence[Tuple[str, float, float]],
+                  guard_us: float, span_us: float
+                  ) -> Optional[List[Tuple[str, float, float]]]:
+    """A `_session`'s events other than its spins, their times rescaled
+    about the first marker's start so that the markers span span_us (the
+    device's time between the session's CUDA events); or None when the
+    profiler dropped either marker (a spin shorter than half the guard):
+    the calls ran between the two markers, so with both present every
+    one of their events is."""
+    markers = sorted((lo, hi) for name, lo, hi in events
+                     if SPIN_KERNEL in name and hi - lo < guard_us / 2)
+    if len(markers) != 2:
+        return None
+    (a0, _), (_, b1) = markers
+    scale = span_us / (b1 - a0)
+    return [(name, a0 + (lo - a0) * scale, a0 + (hi - a0) * scale)
+            for name, lo, hi in events if SPIN_KERNEL not in name]
 
 
 def union_length(spans) -> float:
