@@ -3,6 +3,11 @@ the CPU.
 
 - `StepTimer.summary()` equals the JAX `StepTimer`'s on the same recorded
   times; `trace` and `annotate` write a Chrome trace holding the region.
+- `annotate` off makes no CUDA event and enters no `record_function`;
+  inside `recording()` it keeps the spans' order and nesting (host stamps
+  on the CPU; events resolved against the origin with a stand-in CUDA);
+  the packed detector's outputs and the train step's new state and
+  metrics are bit-equal with recording on and off, and carry their spans.
 - `profile_stages.stem_forward` at upto 26 / 43 / 52 equals the three
   routes of the JAX `_backbone_forward` (`models/yolov3.py`) at 64^2 in
   fp32, with the weights carried across by `from_jax_variables`: atol 1e-5
@@ -13,6 +18,7 @@ the CPU.
   differs by 2.6e-6.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -74,6 +80,198 @@ def test_trace_and_annotate_write_a_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "port_region" for e in events)
     assert any(e.key == "port_region" for e in prof.key_averages())
+
+
+def _no_event_no_range(monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("annotate made a CUDA event or a range")
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+
+
+def test_annotate_off_makes_no_event_and_no_range(monkeypatch):
+    _no_event_no_range(monkeypatch)
+    assert profiling._state is None
+    for _ in range(2):
+        with profiling.annotate("off") as got:
+            assert got is None
+    with pytest.raises(KeyError):
+        with profiling.annotate("off"):
+            raise KeyError("an error inside a span goes through")
+
+
+def test_recording_keeps_order_and_nesting_on_the_cpu(monkeypatch):
+    _no_event_no_range(monkeypatch)
+    with profiling.recording() as rec:
+        with profiling.annotate("a"):
+            with profiling.annotate("a.b"):
+                pass
+            with profiling.annotate("a.c"):
+                with profiling.annotate("a.c.d"):
+                    pass
+        with profiling.annotate("e"):
+            pass
+    with profiling.annotate("after"):          # off again
+        pass
+    spans = rec.spans()
+    assert [(s.name, s.depth) for s in spans] == [
+        ("a", 0), ("a.b", 1), ("a.c", 1), ("a.c.d", 2), ("e", 0)]
+    assert all(s.device is None for s in spans)
+    host = {s.name: s.host for s in spans}
+    for outer, inner in (("a", "a.b"), ("a", "a.c"), ("a.c", "a.c.d")):
+        assert host[outer][0] <= host[inner][0] <= host[inner][1] \
+            <= host[outer][1]
+    assert host["a.b"][1] <= host["a.c"][0] and host["a"][1] <= host["e"][0]
+    assert profiling._state is None
+
+
+def test_recording_inside_a_trace_and_back(monkeypatch):
+    """The innermost block decides; each restores what it found."""
+    entered = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: entered.append(name)
+                        or contextlib.nullcontext())
+    monkeypatch.setattr(profiling.torch.profiler, "profile",
+                        lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.profiler, "tensorboard_trace_handler",
+                        lambda d: None)
+    with profiling.trace("unused"):
+        with profiling.annotate("traced"):
+            pass
+        with profiling.recording() as rec:
+            with profiling.annotate("recorded"):
+                pass
+        with profiling.annotate("traced again"):
+            pass
+    assert entered == ["traced", "traced again"]
+    assert [s.name for s in rec.spans()] == ["recorded"]
+    assert profiling._state is None
+
+
+class _FakeEvent:
+    """A CUDA event on a stand-in device clock: record() stamps the clock's
+    next tick (ms)."""
+    clock = [0.0]
+    made = []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.at = None
+        _FakeEvent.made.append(self)
+
+    def record(self):
+        _FakeEvent.clock[0] += 1.0
+        self.at = _FakeEvent.clock[0]
+
+    def elapsed_time(self, other):
+        return other.at - self.at
+
+
+def test_recording_resolves_events_against_its_origin(monkeypatch):
+    """With a CUDA device each span records an event at entry and exit,
+    drawn from the pool made (and recorded once) at open, doubled when it
+    runs out; spans() synchronizes and gives each span's events in ms from
+    the origin."""
+    synced = []
+    _FakeEvent.clock, _FakeEvent.made = [0.0], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: synced.append(1))
+    monkeypatch.setattr(profiling, "POOL", 5)
+    with profiling.recording() as rec:
+        # the pool's 5 first records (creation), then the origin at tick 6
+        with profiling.annotate("outer"):          # ticks 7 and 10
+            with profiling.annotate("inner"):      # ticks 8 and 9
+                pass
+    assert len(_FakeEvent.made) == 5
+    assert not synced
+    spans = rec.spans()
+    assert synced
+    assert [(s.name, s.depth, s.device) for s in spans] == [
+        ("outer", 0, (1.0, 4.0)), ("inner", 1, (2.0, 3.0))]
+    # a pool of one doubles as the spans need more (1 + 4 events: 8 made),
+    # its new events recorded at their first use only
+    _FakeEvent.made = []
+    monkeypatch.setattr(profiling, "POOL", 1)
+    with profiling.recording() as rec:
+        with profiling.annotate("outer"):          # ticks 3 and 6
+            with profiling.annotate("inner"):      # ticks 4 and 5
+                pass
+    assert len(_FakeEvent.made) == 8
+    assert [s.device for s in rec.spans()] == [(1.0, 4.0), (2.0, 3.0)]
+
+
+@pytest.fixture(scope="module")
+def spans_setup():
+    """A packed detector and a train step (device label encoding) at 64^2,
+    fp32, on the CPU, with their inputs."""
+    from yolov3_tensorflow_tpu_torch.config import DEFAULT_ANCHORS, Config
+    from yolov3_tensorflow_tpu_torch.models.convert import spread_head
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.train.optimizers import build_optimizer
+    from yolov3_tensorflow_tpu_torch.train.schedules import fixed
+    from yolov3_tensorflow_tpu_torch.train.trainer import make_train_step
+    classes = 4
+    cfg = Config()
+    cfg.model.num_classes = classes
+    cfg.model.compute_dtype = "float32"
+    cfg.anchors = np.asarray(DEFAULT_ANCHORS, np.float32)
+    variables = from_jax_variables(spread_head(numpy_variables(classes,
+                                                               seed=3),
+                                               seed=3), device=CPU)
+    det = build_detector(variables, np.asarray(cfg.anchors, np.float32),
+                         classes, (SIZE, SIZE), device=CPU, mode="packed",
+                         max_out=16, box_topk=32, score_thresh=0.3,
+                         iou_thresh=0.45, compute_dtype=torch.float32)
+    opt = build_optimizer("momentum", fixed(1e-3))
+    step = make_train_step(cfg, opt, fixed(1e-3), device_encode=True)
+    state = {"params": variables["params"],
+             "batch_stats": variables["batch_stats"],
+             "opt_state": opt.init(variables["params"]), "step": 0}
+    g = torch.Generator().manual_seed(3)
+    images = torch.rand((2, SIZE, SIZE, 3), generator=g)
+    boxes = torch.tensor([[[4., 6., 30., 40., 1.], [20., 8., 60., 50., 1.]],
+                          [[10., 10., 50., 44., 1.], [0., 0., 0., 0., 0.]]])
+    gt = (boxes, torch.tensor([[1, 3], [2, 0]]),
+          torch.tensor([[True, True], [True, False]]))
+    return det, step, state, images, gt
+
+
+def _equal(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _equal(a[k], b[k])
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b)
+    else:
+        assert a == b
+
+
+def test_packed_detector_bit_equal_with_recording(spans_setup):
+    det, _, _, images, _ = spans_setup
+    off = det(images)
+    with profiling.recording() as rec:
+        on = det(images)
+    _equal(off, on)
+    assert off["valid"].any()
+    assert [(s.name, s.depth) for s in rec.spans()] == [
+        ("packed.forward", 0), ("packed.postprocess", 0)]
+
+
+def test_train_step_bit_equal_with_recording(spans_setup):
+    _, step, state, images, gt = spans_setup
+    new_off, metrics_off = step(state, images, gt)
+    with profiling.recording() as rec:
+        new_on, metrics_on = step(state, images, gt)
+    _equal(new_off, new_on)
+    _equal(metrics_off, metrics_on)
+    assert torch.isfinite(metrics_on["total"])
+    assert [(s.name, s.depth) for s in rec.spans()] == [
+        ("train_step", 0), ("train_step.encode", 1),
+        ("train_step.forward", 1), ("train_step.loss", 1),
+        ("train_step.backward", 1), ("train_step.update", 1)]
 
 
 def test_cuda_ms_refuses_to_time_the_cpu():

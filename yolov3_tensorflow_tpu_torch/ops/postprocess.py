@@ -31,6 +31,7 @@ from yolov3_tensorflow_tpu_torch.ops.nms import batched_nms_auto
 from yolov3_tensorflow_tpu_torch.ops.quantize import (
     QuantizedDetector, build_detector_int8, build_stem_int8_packed,
     calibrate_activation_scales, yolov3_forward_stem_int8_packed)
+from yolov3_tensorflow_tpu_torch.utils.profiling import annotate
 
 _MODES = ("packed", "split", "exact", "prefilter", "stem8")
 
@@ -56,7 +57,10 @@ def postprocess(feature_maps, anchors: np.ndarray, num_classes: int,
 class PackedDetector(nn.Module):
     """images [B, H, W, 3] float in [0, 1] (NHWC, any device) -> detections
     dict of [B, C*max_out, ...] on the detector's device. Runs under
-    torch.inference_mode()."""
+    torch.inference_mode(). Spans (`utils.profiling.annotate`):
+    "packed.forward" (the copy in and the packed forward) and
+    "packed.postprocess" (`postprocess_packed`: score, top-k, gather and
+    decode, K1, compaction)."""
 
     def __init__(self, packed: dict, tables: torch.Tensor, num_classes: int,
                  img_size: Tuple[int, int], *, max_out: int, box_topk: int,
@@ -78,14 +82,16 @@ class PackedDetector(nn.Module):
         if tuple(images.shape[1:3]) != self.img_size:
             raise ValueError(f"detector built for {self.img_size}, got "
                              f"images {tuple(images.shape)}")
-        images = images.to(self.tables.device, non_blocking=True)
-        outs = yolov3_forward_packed(self.packed, images,
-                                     compute_dtype=self.compute_dtype)
-        return postprocess_packed(
-            outs, None, self.num_classes, self.img_size,
-            max_out=self.max_out, box_topk=self.box_topk,
-            score_thresh=self.score_thresh, iou_thresh=self.iou_thresh,
-            tables=self.tables)
+        with annotate("packed.forward"):
+            images = images.to(self.tables.device, non_blocking=True)
+            outs = yolov3_forward_packed(self.packed, images,
+                                         compute_dtype=self.compute_dtype)
+        with annotate("packed.postprocess"):
+            return postprocess_packed(
+                outs, None, self.num_classes, self.img_size,
+                max_out=self.max_out, box_topk=self.box_topk,
+                score_thresh=self.score_thresh, iou_thresh=self.iou_thresh,
+                tables=self.tables)
 
 
 class SplitDetector(nn.Module):

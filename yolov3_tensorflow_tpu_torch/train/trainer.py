@@ -70,7 +70,7 @@ from yolov3_tensorflow_tpu_torch.train.optimizers import (Optimizer,
                                                           path_prefix_mask,
                                                           unflatten)
 from yolov3_tensorflow_tpu_torch.train.schedules import build_schedule
-from yolov3_tensorflow_tpu_torch.utils.profiling import StepTimer
+from yolov3_tensorflow_tpu_torch.utils.profiling import StepTimer, annotate
 from yolov3_tensorflow_tpu_torch.utils.summary import (NullSummaryWriter,
                                                        SummaryWriter)
 
@@ -111,6 +111,13 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
     or, with device_augment on too (nothing in the batch carries it), from
     the step's `out_size` argument (w, h), the batch's `img_size`, which
     that step then requires.
+
+    Spans (`utils.profiling.annotate`): "train_step" holds the whole step,
+    and inside it "train_step.encode" (the device label encoding),
+    ".forward" (live BN), ".loss" (the loss and the L2 term), ".backward"
+    (autograd) and ".update" (the optimizer with its clip, and the new
+    params); the augmentation, the leaves' set-up and a group's all-reduce
+    are the outer span's alone.
     """
     anchors = np.asarray(cfg.anchors, np.float32)
     m = cfg.model
@@ -118,6 +125,11 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
 
     def train_step(state: TrainState, images, y_true,
                    out_size: Optional[Tuple[int, int]] = None):
+        with annotate("train_step"):
+            return step(state, images, y_true, out_size)
+
+    def step(state: TrainState, images, y_true,
+             out_size: Optional[Tuple[int, int]]):
         if device_augment:
             staged, staged2, aug = images
             if device_encode:
@@ -134,29 +146,33 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
                                    mixup=cfg.data.use_mix_up,
                                    distort=cfg.data.use_color_distort)
         if device_encode:
-            y_true = tuple(encode_labels_device(
-                *y_true, (images.shape[2], images.shape[1]), m.num_classes,
-                anchors))
+            with annotate("train_step.encode"):
+                y_true = tuple(encode_labels_device(
+                    *y_true, (images.shape[2], images.shape[1]),
+                    m.num_classes, anchors))
         img_size = (images.shape[1], images.shape[2])  # (h, w)
         flat = flatten(state["params"])
         live = {p: flat[p].detach().requires_grad_(True)
                 for p in optimizer.trainable(state["params"])}
         with torch.enable_grad():
             params = unflatten({**flat, **live})
-            fmaps, new_stats = yolov3_forward(
-                {"params": params, "batch_stats": state["batch_stats"]},
-                images, train=True, compute_dtype=compute_dtype,
-                bn_momentum=m.batch_norm_decay, bn_eps=m.batch_norm_epsilon,
-                group=group)
-            losses = compute_loss(
-                fmaps, y_true, anchors, m.num_classes, img_size,
-                use_label_smooth=m.use_label_smooth,
-                use_focal_loss=m.use_focal_loss,
-                max_gt=cfg.data.max_boxes_per_image, box_loss=m.box_loss)
-            l2 = l2_regularization(params, m.weight_decay)
-            grads = (torch.autograd.grad(losses["total"] + l2,
-                                         list(live.values()))
-                     if live else ())
+            with annotate("train_step.forward"):
+                fmaps, new_stats = yolov3_forward(
+                    {"params": params, "batch_stats": state["batch_stats"]},
+                    images, train=True, compute_dtype=compute_dtype,
+                    bn_momentum=m.batch_norm_decay,
+                    bn_eps=m.batch_norm_epsilon, group=group)
+            with annotate("train_step.loss"):
+                losses = compute_loss(
+                    fmaps, y_true, anchors, m.num_classes, img_size,
+                    use_label_smooth=m.use_label_smooth,
+                    use_focal_loss=m.use_focal_loss,
+                    max_gt=cfg.data.max_boxes_per_image, box_loss=m.box_loss)
+                l2 = l2_regularization(params, m.weight_decay)
+            with annotate("train_step.backward"):
+                grads = (torch.autograd.grad(losses["total"] + l2,
+                                             list(live.values()))
+                         if live else ())
         if group is not None and grads:
             flat_g = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat_g, group=group)
@@ -167,11 +183,12 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
             for g, part in zip(grads, flat_g.split([g.numel()
                                                     for g in grads])):
                 g.copy_(part.view(g.shape))
-        updates, new_opt = optimizer.update(dict(zip(live, grads)),
-                                            state["opt_state"])
-        new_state = {"params": apply_updates(state["params"], updates),
-                     "batch_stats": new_stats, "opt_state": new_opt,
-                     "step": state["step"] + 1}
+        with annotate("train_step.update"):
+            updates, new_opt = optimizer.update(dict(zip(live, grads)),
+                                                state["opt_state"])
+            new_state = {"params": apply_updates(state["params"], updates),
+                         "batch_stats": new_stats, "opt_state": new_opt,
+                         "step": state["step"] + 1}
         metrics: Dict[str, Any] = {k: v.detach() for k, v in losses.items()}
         metrics["l2"] = l2.detach()
         if schedule is not None:

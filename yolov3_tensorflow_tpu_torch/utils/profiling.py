@@ -5,9 +5,13 @@ Counterpart of `yolov3_tensorflow_tpu/utils/profiling.py`:
 - `StepTimer`: p50/p95/mean wall time per step. PyTorch returns before the
   device finishes, so `step(result=...)` synchronizes the devices the
   result's tensors live on before it stops the clock.
-- `trace` / `annotate`: `torch.profiler` capture written as a Chrome trace
-  (readable by TensorBoard's profile plugin and by chrome://tracing), and
-  named regions in it (`record_function`).
+- `trace`: `torch.profiler` capture written as a Chrome trace (readable by
+  TensorBoard's profile plugin and by chrome://tracing).
+- `annotate` / `recording`: the program's named spans. Off by default,
+  where a span costs the read of one module global; inside `recording()`
+  each span's host stamps and, on a CUDA device, a CUDA event at each end,
+  kept with their nesting; inside `trace()` a `record_function` region of
+  the Chrome trace.
 - `cuda_ms`: mean device time of a callable from CUDA events, for the
   probes and the stage profiler.
 - `differential_ms` and `call_samples_ms`: a callable's time per call, host
@@ -23,8 +27,8 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import (Any, Callable, Dict, Iterator, List, Optional,
-                    Sequence, Set, Tuple)
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Sequence, Set, Tuple)
 
 import numpy as np
 import torch
@@ -100,15 +104,149 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                log_dir)) as prof:
+                log_dir)) as prof, _annotating(_TRACING):
         yield prof
 
 
+# What `annotate` does: None (off), _TRACING (inside `trace`: a
+# record_function region) or the open Recording (inside `recording`).
+_state: Any = None
+_TRACING = "trace"
+_OFF = contextlib.nullcontext()
+
+
 @contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in the profiler timeline (`record_function`)."""
-    with torch.profiler.record_function(name):
+def _annotating(state: Any) -> Iterator[None]:
+    global _state
+    before, _state = _state, state
+    try:
         yield
+    finally:
+        _state = before
+
+
+def annotate(name: str):
+    """A named span of the program: `with annotate("packed.forward"): ...`.
+
+    Off (the default) it costs the read of one module global. Inside
+    `recording()` the open Recording keeps the span's host stamps and CUDA
+    events (see `Recording`); inside `trace()` the span is a
+    `record_function` region, so the Chrome trace shows it by name."""
+    state = _state
+    if state is None:
+        return _OFF
+    if state is _TRACING:
+        return torch.profiler.record_function(name)
+    return _Span(state, name)
+
+
+class Span(NamedTuple):
+    """One recorded span: its depth among the open spans at its entry (0
+    outermost), its host interval (time.perf_counter seconds at entry and
+    exit) and its device interval (ms from the recording's origin event to
+    its event at entry and at exit, on the stream current at each end; the
+    stream time the span holds, waits for the host inside it included),
+    None without a CUDA device."""
+    name: str
+    depth: int
+    host: Tuple[float, float]
+    device: Optional[Tuple[float, float]]
+
+
+# CUDA events a recording makes when it opens (a traced part of the
+# benchmark's cells uses up to 101)
+POOL = 256
+
+
+class Recording:
+    """The spans of one `recording()` block. With a CUDA device it draws
+    its events from a pool made when it opens, each recorded once there so
+    that CUDA makes it then (a timed record holds the stream ~3 us on the
+    H100: a pool of POOL costs ~0.8 ms of device time at the open), and
+    records `origin` on the current stream last. A block that needs more
+    events doubles the pool, CUDA making each new one at its first use.
+    `spans()`, once the block has closed, waits for the device and
+    resolves the events."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.rows: List[list] = []       # [name, depth, t0, t1, ev0, ev1]
+        self.depth = 0
+        self._pool: List[torch.cuda.Event] = []
+        self._used = 0
+        self.origin = None
+        if cuda:
+            self._grow(POOL)
+            for ev in self._pool:
+                ev.record()
+            self.origin = self._event()
+
+    def _grow(self, n: int) -> None:
+        self._pool += [torch.cuda.Event(enable_timing=True)
+                       for _ in range(n)]
+
+    def _event(self) -> torch.cuda.Event:
+        if self._used == len(self._pool):
+            self._grow(max(len(self._pool), 1))
+        ev = self._pool[self._used]
+        self._used += 1
+        ev.record()
+        return ev
+
+    def spans(self) -> List[Span]:
+        """Every closed span, in the order the spans were entered."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        out = []
+        for name, depth, t0, t1, ev0, ev1 in self.rows:
+            if t1 is None:
+                continue
+            dev = (self.origin.elapsed_time(ev0),
+                   self.origin.elapsed_time(ev1)) if self.cuda else None
+            out.append(Span(name, depth, (t0, t1), dev))
+        return out
+
+
+class _Span:
+    """annotate()'s context inside a recording: the host clock before the
+    event at entry, after the event at exit."""
+    __slots__ = ("rec", "name", "row")
+
+    def __init__(self, rec: Recording, name: str):
+        self.rec = rec
+        self.name = name
+
+    def __enter__(self) -> None:
+        rec = self.rec
+        self.row = [self.name, rec.depth, time.perf_counter(), None, None,
+                    None]
+        if rec.cuda:
+            self.row[4] = rec._event()
+        rec.rows.append(self.row)
+        rec.depth += 1
+
+    def __exit__(self, *exc) -> None:
+        rec = self.rec
+        rec.depth -= 1
+        if rec.cuda:
+            self.row[5] = rec._event()
+        self.row[3] = time.perf_counter()
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """Record every `annotate` span entered in the block:
+
+    with profiling.recording() as rec:
+        step(...)
+    rec.spans()      # [Span(name, depth, host, device), ...]
+
+    On a CUDA device each span also records a CUDA event at both ends on
+    the current stream (a few microseconds of host time each); on the CPU
+    it keeps host stamps only."""
+    rec = Recording(torch.cuda.is_available())
+    with _annotating(rec):
+        yield rec
 
 
 # The least host time allowed per call when queueing a timed run (see
