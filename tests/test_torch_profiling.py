@@ -347,6 +347,30 @@ def _stub_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
 
 
+def test_settle_teardown_launches_and_synchronises_until_settle_ms(
+        monkeypatch):
+    """After a session: short launches, each followed by a synchronise,
+    until SETTLE_MS has passed; the longest launch and synchronise (here a
+    hold of 4 ms in the third) is returned."""
+    log = []
+
+    def synchronize(device=None):
+        log.append("sync")
+        if log.count("sync") == 3:
+            time.sleep(0.004)
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: log.append(("spin", cycles)))
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    monkeypatch.setattr(profiling, "SETTLE_MS", 20.0)
+    t0 = time.perf_counter()
+    longest = profiling.settle_teardown()
+    assert time.perf_counter() - t0 >= 0.020
+    assert 4.0 <= longest < 20.0
+    assert len(log) >= 6 and log[::2] == [
+        ("spin", profiling.SETTLE_SPIN)] * (len(log) // 2)
+    assert log[1::2] == ["sync"] * (len(log) // 2)
+
+
 def test_device_events_rerun_with_a_longer_guard(monkeypatch):
     """A session that lost a marker runs again with a guard GUARD_GROWTH
     times longer; the busy time is the union of the session's events
@@ -366,6 +390,23 @@ def test_device_events_rerun_with_a_longer_guard(monkeypatch):
     assert calls == [1, 1, 1]             # the untimed calls
     assert guards == [profiling.GUARD_MS,
                       profiling.GUARD_MS * profiling.GUARD_GROWTH]
+
+
+def test_device_timeline_gives_the_calls_time_between_the_markers(
+        monkeypatch):
+    """Beside the events, the device's time from the first marker's end to
+    the second's start, on the rescaled clock: the events' union (5 us)
+    falls short of it (9 us) by the gaps between them."""
+    _stub_cuda(monkeypatch)
+    monkeypatch.setattr(profiling, "_session",
+                        lambda fn, iters, guard_ms, record_ranges: (
+                            _events(guard_ms * 1e3, stretch=1.1), SPAN / 1e3))
+    events, calls_us = profiling.device_timeline(lambda: None, 2)
+    assert [e[0] for e in events] == ["k", "copy", "k"]
+    assert calls_us == pytest.approx(9.0)
+    assert profiling.union_length([e[1:] for e in events]) == \
+        pytest.approx(5.0)
+    assert profiling.device_events(lambda: None, 2) == events
 
 
 def test_device_events_raise_when_every_session_loses_a_marker(monkeypatch):

@@ -112,6 +112,22 @@ def test_kernel_bounds_against_hand_numbers():
     assert (round(ms, 4), by) == (0.001, "bytes")
 
 
+def test_conv_epilogue_bound_against_hand_numbers():
+    """E1's bound, bytes at 3.35 TB/s: the stem conv's bf16 output at batch
+    128, 416^2 (2.84 GB read and written), the same with a shortcut of its
+    shape (4.25 GB), and the 26^2 junction reading its 13^2 lateral half."""
+    n = 128 * 32 * 416 * 416
+    ms, by = roofline.bound_conv_epilogue(n, 2)
+    assert 2 * 2 * n == 2835349504
+    assert (round(ms, 4), by) == (0.8464, "bytes")
+    ms, by = roofline.bound_conv_epilogue(n, 2, n)
+    assert (round(ms, 4), by) == (1.2696, "bytes")
+    hi, lo = 128 * 256 * 26 * 26, 128 * 256 * 13 * 13
+    ms, by = roofline.bound_conv_epilogue(hi, 4, lo)
+    assert ms == pytest.approx((2 * hi + lo) * 4 / 3.35e12 * 1e3)
+    assert by == "bytes"
+
+
 def test_nms_pairs_counts_only_what_the_inputs_need():
     valid = torch.tensor([[True, False, True, True, False]])
     keep = torch.tensor([[True, False, False, True, False]])

@@ -1,0 +1,317 @@
+// The folded conv's epilogue in one pass over the conv's output, for Hopper
+// (sm_90a): the bias add, LeakyReLU(0.1) and the residual add of the
+// serving forward, and the FPN junction's sum.
+//
+// Replaces no TPU kernel: on the TPU, XLA fuses the same epilogue into the
+// conv it follows (yolov3_tensorflow_tpu/models/layers.py: conv_folded,
+// conv_folded_asym, neck_split_folded; ops/fast_postprocess.py: the packed
+// output conv). On the card cuDNN writes the conv's output, and PyTorch then
+// read and wrote it again for the bias add, again for the LeakyReLU and
+// again for the residual add. Its plain PyTorch version is
+// ops/conv_epilogue.py:conv_epilogue_reference, that chain unchanged.
+//
+// Four modes, each its own template instance; the wrapper picks one from
+// the operands the call passes. y is the conv's output [N, H, W, C]
+// (channels_last) of T = bf16 or fp32, b the bias [C] (fp32 or bf16):
+//   kBias      out = rnd(y + rnd(b))                  the packed output conv
+//   kLeaky     out = rnd(leaky(rnd(y + rnd(b))))      conv_folded
+//   kResidual  out = rnd(rnd(leaky(rnd(y + rnd(b)))) + e)
+//                                                     the block's last conv,
+//                                                     e its shortcut
+//   kJunction  out = rnd(leaky((e[n, h/2, w/2] + y) + b))
+//                                                     neck_split_folded: e the
+//                                                     lateral half at low
+//                                                     resolution, y the route
+//                                                     half, summed in fp32
+// rnd() rounds a float to T to nearest even (__float2bfloat16, the
+// conversion PyTorch's own CUDA kernels use from sm_80 on), and
+// leaky(x) = x > 0 ? x : x * slope, with the slope the wrapper passes: 0.1
+// rounded to T, or to fp32 at the junction, whose chain applies it to the
+// fp32 sum. Every value is computed in float, as PyTorch computes bf16
+// elementwise (its opmath type), and rounded where the chain stores;
+// --fmad=false keeps the product out of an FMA. So every output bit equals
+// the chain's, NaN and subnormal values included.
+//
+// What bounds it: device-memory bytes. A value is read once (twice with e)
+// and written once for a handful of float operations: at batch 128 and
+// 416^2 the packed forward's 75 calls move 24.06 GB, 7.18 ms at 3.35 TB/s,
+// where the chain moved ~52 GB. The design:
+//   - each thread owns one group of 8 channels for the whole launch and
+//     loads and rounds their bias once: its vectors are t, t + S, t + 2S,
+//     ... with S, the threads that work, cut to a multiple of C / 8;
+//   - 16-byte loads and stores along C (8 bf16, or 2 x 4 fp32), neighbouring
+//     threads on neighbouring addresses; kUnroll vectors (and their e) are
+//     loaded before any is computed, so a thread keeps 64-128 bytes in
+//     flight; the grid holds the blocks the SMs can keep resident (the
+//     occupancy the compiler leaves), no more, and loops over the rest;
+//   - dense operands (the conv's own output, written in place) are walked
+//     by the flat vector index. A strided window (conv_folded_asym's crop
+//     of its conv's output, written out dense) and the junction's
+//     low-resolution operand take each pixel's (n, h, w) and per-operand
+//     strides: three 32-bit divisions a vector, in the 2 junction calls of
+//     the 75 (and the window, with the space-to-depth stem).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+enum Mode { kBias = 0, kLeaky = 1, kResidual = 2, kJunction = 3 };
+
+struct Strides {          // in elements; the channel stride is 1
+  long long n, h, w;
+};
+
+struct Args {
+  void* out;
+  const void* y;
+  const void* e;          // kResidual: the shortcut; kJunction: the lateral
+  const void* bias;
+  int bias_bf16;
+  int c8;                 // C / 8
+  long long vectors;      // N * H * W * C / 8
+  long long stride;       // S: a thread's step, in vectors (a multiple of c8)
+  float slope;
+  int h, w;               // the strided walk: out's H and W
+  Strides so, sy, se;
+};
+
+// A vector is 8 channels of one pixel: loaded as it lies in memory (Raw, 16
+// bytes of bf16 or 32 of fp32), widened to floats only when computed, so a
+// thread's kUnroll vectors in flight cost half the registers in bf16.
+template <typename T>
+struct IO;
+
+template <>
+struct IO<float> {
+  struct Raw {
+    float4 a, b;
+  };
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ Raw load(const void* base, long long off) {
+    const float4* p =
+        reinterpret_cast<const float4*>(static_cast<const float*>(base) + off);
+    return Raw{p[0], p[1]};
+  }
+  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[8]) {
+    f[0] = r.a.x; f[1] = r.a.y; f[2] = r.a.z; f[3] = r.a.w;
+    f[4] = r.b.x; f[5] = r.b.y; f[6] = r.b.z; f[7] = r.b.w;
+  }
+  static __device__ __forceinline__ void store(void* base, long long off,
+                                               const float (&f)[8]) {
+    float4* p = reinterpret_cast<float4*>(static_cast<float*>(base) + off);
+    p[0] = make_float4(f[0], f[1], f[2], f[3]);
+    p[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+};
+
+template <>
+struct IO<__nv_bfloat16> {
+  using Raw = uint4;
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  static __device__ __forceinline__ Raw load(const void* base, long long off) {
+    return *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(base) + off);
+  }
+  // a bf16 is the top half of the float it stands for; the lower address
+  // of a pair is the lower half of its 32-bit word
+  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[8]) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    return unsigned(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+           (unsigned(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+  }
+  static __device__ __forceinline__ void store(void* base, long long off,
+                                               const float (&f)[8]) {
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(base) + off) =
+        make_uint4(pack(f[0], f[1]), pack(f[2], f[3]), pack(f[4], f[5]),
+                   pack(f[6], f[7]));
+  }
+};
+
+__device__ __forceinline__ long long at(const Strides& s, unsigned n,
+                                        unsigned h, unsigned w) {
+  return n * s.n + h * s.h + w * s.w;
+}
+
+template <typename T, int kMode, bool kStrided>
+__global__ void __launch_bounds__(kThreads)
+    conv_epilogue_kernel(const Args g) {
+  using Raw = typename IO<T>::Raw;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= g.stride) return;
+  const int c = int(t % g.c8) * 8;           // the thread's first channel
+  float b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float v =
+        g.bias_bf16
+            ? __bfloat162float(static_cast<const __nv_bfloat16*>(g.bias)[c + i])
+            : static_cast<const float*>(g.bias)[c + i];
+    b[i] = kMode == kJunction ? v : IO<T>::round(v);
+  }
+  constexpr bool kE = kMode == kResidual || kMode == kJunction;
+  const long long pstep = g.stride / g.c8;   // pixels between a thread's steps
+  long long p0 = t / g.c8;
+  for (long long v0 = t; v0 < g.vectors;
+       v0 += kUnroll * g.stride, p0 += kUnroll * pstep) {
+    Raw xr[kUnroll], er[kUnroll];
+    long long oo[kUnroll];                   // the strided walk's out offsets
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * g.stride;
+      if (v < g.vectors) {
+        long long yo = v * 8, eo = v * 8;
+        if (kStrided) {
+          const unsigned p = unsigned(p0 + u * pstep);
+          const unsigned pw = p % unsigned(g.w), q = p / unsigned(g.w);
+          const unsigned ph = q % unsigned(g.h), pn = q / unsigned(g.h);
+          oo[u] = at(g.so, pn, ph, pw) + c;
+          yo = at(g.sy, pn, ph, pw) + c;
+          eo = (kMode == kJunction ? at(g.se, pn, ph >> 1, pw >> 1)
+                                   : at(g.se, pn, ph, pw)) + c;
+        }
+        xr[u] = IO<T>::load(g.y, yo);
+        if (kE) er[u] = IO<T>::load(g.e, eo);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * g.stride;
+      if (v < g.vectors) {
+        float x[8], e[8];
+        IO<T>::unpack(xr[u], x);
+        if (kE) IO<T>::unpack(er[u], e);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float r;
+          if (kMode == kJunction) {
+            r = (e[i] + x[i]) + b[i];
+            r = r > 0.f ? r : r * g.slope;
+          } else {
+            r = IO<T>::round(x[i] + b[i]);
+            if (kMode != kBias) r = IO<T>::round(r > 0.f ? r : r * g.slope);
+            if (kMode == kResidual) r = r + e[i];
+          }
+          x[i] = r;
+        }
+        IO<T>::store(g.out, kStrided ? oo[u] : v * 8, x);
+      }
+    }
+  }
+}
+
+int sm_count() {
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+template <typename T, int kMode, bool kStrided>
+cudaError_t launch(Args g, cudaStream_t st) {
+  static int per_sm = 0;    // resident blocks an SM, once per instance
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, conv_epilogue_kernel<T, kMode, kStrided>, kThreads, 0);
+    if (e != cudaSuccess) return e;
+  }
+  const int sms = sm_count();
+  if (sms <= 0 || per_sm <= 0) return cudaErrorInvalidDevice;
+  long long threads = (long long)sms * per_sm * kThreads;
+  const long long need = (g.vectors + kUnroll - 1) / kUnroll;
+  if (need < threads) threads = need;
+  if (threads < g.c8) threads = g.c8;
+  g.stride = threads / g.c8 * g.c8;
+  const long long blocks = (g.stride + kThreads - 1) / kThreads;
+  conv_epilogue_kernel<T, kMode, kStrided>
+      <<<unsigned(blocks), kThreads, 0, st>>>(g);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kStrided>
+cudaError_t dispatch(int mode, const Args& g, cudaStream_t st) {
+  switch (mode) {
+    case kBias: return launch<T, kBias, kStrided>(g, st);
+    case kLeaky: return launch<T, kLeaky, kStrided>(g, st);
+    case kResidual: return launch<T, kResidual, kStrided>(g, st);
+    case kJunction:
+      if constexpr (kStrided) return launch<T, kJunction, true>(g, st);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool kStrided>
+int run(int bf16, int mode, const Args& g, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return int(bf16 ? dispatch<__nv_bfloat16, kStrided>(mode, g, st)
+                  : dispatch<float, kStrided>(mode, g, st));
+}
+
+bool bad(const void* out, const void* y, const void* e, const void* bias,
+         int mode, long long pixels, int c) {
+  return out == nullptr || y == nullptr || bias == nullptr || mode < kBias ||
+         mode > kJunction || ((mode == kResidual || mode == kJunction) &&
+                              e == nullptr) ||
+         pixels <= 0 || c <= 0 || c % 8 != 0;
+}
+
+}  // namespace
+
+// Dense operands: out, y and e are [pixels, c] row-major (a channels_last
+// tensor), 16-byte aligned; out may be y. bf16 selects T (else fp32),
+// bias_bf16 the bias's type; mode kBias, kLeaky or kResidual. Returns the
+// cudaError_t of the launch.
+extern "C" int conv_epilogue_dense(void* out, const void* y, const void* e,
+                                   const void* bias, int bf16, int bias_bf16,
+                                   int mode, long long pixels, int c,
+                                   float slope, void* stream) {
+  if (bad(out, y, e, bias, mode, pixels, c) || mode == kJunction)
+    return int(cudaErrorInvalidValue);
+  Args g{};
+  g.out = out; g.y = y; g.e = e; g.bias = bias; g.bias_bf16 = bias_bf16;
+  g.c8 = c / 8;
+  g.vectors = pixels * g.c8;
+  g.slope = slope;
+  return run<false>(bf16, mode, g, stream);
+}
+
+// Strided operands: out and y [n, h, w, c], e [n, h, w, c] (kResidual) or
+// [n, h/2, w/2, c] (kJunction), each with its own n, h and w strides in
+// elements (multiples of 8) and a channel stride of 1, 16-byte aligned;
+// n * h * w < 2^31. Any mode.
+extern "C" int conv_epilogue_strided(
+    void* out, const void* y, const void* e, const void* bias, int bf16,
+    int bias_bf16, int mode, int n, int h, int w, int c, long long so_n,
+    long long so_h, long long so_w, long long sy_n, long long sy_h,
+    long long sy_w, long long se_n, long long se_h, long long se_w,
+    float slope, void* stream) {
+  const long long pixels = (long long)n * h * w;
+  if (bad(out, y, e, bias, mode, pixels, c) || n <= 0 || h <= 0 || w <= 0 ||
+      pixels >= 0x80000000LL)
+    return int(cudaErrorInvalidValue);
+  Args g{};
+  g.out = out; g.y = y; g.e = e; g.bias = bias; g.bias_bf16 = bias_bf16;
+  g.c8 = c / 8;
+  g.vectors = pixels * g.c8;
+  g.slope = slope;
+  g.h = h; g.w = w;
+  g.so = Strides{so_n, so_h, so_w};
+  g.sy = Strides{sy_n, sy_h, sy_w};
+  g.se = Strides{se_n, se_h, se_w};
+  return run<true>(bf16, mode, g, stream);
+}

@@ -11,18 +11,20 @@ NHWC tensor permuted to NCHW already is channels_last.
 Rounding follows the JAX package: each conv emits `compute_dtype`, and the
 bias add, the batch-norm scale and shift and the LeakyReLU run in that
 dtype (bf16 on the GPU), with the LeakyReLU slope rounded to that dtype as
-JAX rounds it.
+JAX rounds it. The folded layers' epilogues (bias, LeakyReLU, the residual
+add, the junction's sum) go through `ops.conv_epilogue`: one kernel pass
+over the conv's output on the card, the same chain on the CPU.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from yolov3_tensorflow_tpu_torch.ops.conv_epilogue import conv_epilogue, slope
 from yolov3_tensorflow_tpu_torch.parallel.multihost import all_reduce_sum
 
 Params = Dict[str, torch.Tensor]
@@ -47,14 +49,7 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     dtype, so it is given the slope rounded to x's dtype; the product of
     two bf16 values is exact in float, and the result is JAX's, bit for
     bit."""
-    return F.leaky_relu(x, _slope(alpha, x.dtype))
-
-
-@functools.lru_cache(maxsize=None)
-def _slope(alpha: float, dtype: torch.dtype) -> float:
-    """`alpha` rounded to `dtype`, once per pair: a tensor made per call
-    would cost host time on every activation."""
-    return float(torch.tensor(alpha, dtype=dtype))
+    return F.leaky_relu(x, slope(alpha, x.dtype))
 
 
 def _channel(v: torch.Tensor) -> torch.Tensor:
@@ -63,11 +58,13 @@ def _channel(v: torch.Tensor) -> torch.Tensor:
 
 
 def conv_folded(x: torch.Tensor, p: Params, *, stride: int = 1,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Conv with BN folded into (w, b), then leaky (JAX `conv_folded`)."""
+                compute_dtype: torch.dtype = torch.bfloat16,
+                shortcut: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Conv with BN folded into (w, b), then leaky (JAX `conv_folded`);
+    with a `shortcut`, the residual block's `+ shortcut` after it. The
+    epilogue is `ops.conv_epilogue`'s, in place on the card."""
     y = conv2d(x, p["w"], stride=stride, compute_dtype=compute_dtype)
-    y = y + _channel(p["b"].to(y.dtype))
-    return leaky_relu(y).to(compute_dtype)
+    return conv_epilogue(y, p["b"], shortcut=shortcut)
 
 
 def conv_folded_asym(x: torch.Tensor, p: Params, *,
@@ -83,7 +80,7 @@ def conv_folded_asym(x: torch.Tensor, p: Params, *,
     largest of the four and the output window the asymmetric padding
     gives is cut out of it: for ((1, 0), (1, 0)) one extra output row and
     column, dropped, where padding first (`F.pad`) would copy the whole
-    input. The window is a strided view; the bias add writes it out
+    input. The window is a strided view; the epilogue writes it out
     dense."""
     (top, bottom), (left, right) = padding
     pad = max(top, bottom, left, right)
@@ -92,8 +89,7 @@ def conv_folded_asym(x: torch.Tensor, p: Params, *,
     h = x.shape[2] + top + bottom - k_h + 1
     w = x.shape[3] + left + right - k_w + 1
     y = y[:, :, pad - top:pad - top + h, pad - left:pad - left + w]
-    y = y + _channel(p["b"].to(y.dtype))
-    return leaky_relu(y).to(compute_dtype)
+    return conv_epilogue(y, p["b"])
 
 
 def conv_bias(x: torch.Tensor, p: Params, *,
@@ -115,16 +111,16 @@ def neck_split_folded(inter: torch.Tensor, route: torch.Tensor, p_lat: Params,
     sum of 1x1 convs over the parts, and a 1x1 conv commutes with
     nearest-neighbour upsampling, so the lateral half is convolved at low
     resolution and only its output is upsampled. The parts are summed in
-    fp32, as in the JAX `neck_split_folded`.
+    fp32, as in the JAX `neck_split_folded`; on the card the epilogue
+    reads the lateral half at low resolution by index, so the upsampled
+    tensor is never made (`ops.conv_epilogue`).
     """
     a = conv_folded(inter, p_lat, compute_dtype=compute_dtype)
     ca = a.shape[1]
     w = p_first["w"].to(compute_dtype)
     ya = conv2d(a, w[:, :ca], compute_dtype=compute_dtype)
     yb = conv2d(route, w[:, ca:], compute_dtype=compute_dtype)
-    y = (upsample_nearest_2x(ya).float() + yb.float()
-         + _channel(p_first["b"].float()))
-    return leaky_relu(y).to(compute_dtype)
+    return conv_epilogue(yb, p_first["b"], low=ya)
 
 
 def space_to_depth_2x(x: torch.Tensor,
@@ -165,7 +161,7 @@ def leaky_relu_train(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     is 1, as JAX's `where` gives it; `F.leaky_relu`'s is the slope there,
     and a bf16 `y * a + b` lands on exactly 0 often enough over a training
     step's activations to matter. The slope is rounded to x's dtype."""
-    return torch.where(x >= 0, x, x * _slope(alpha, x.dtype))
+    return torch.where(x >= 0, x, x * slope(alpha, x.dtype))
 
 
 def batch_norm(y: torch.Tensor, p: Params, s: Params, *, train: bool,

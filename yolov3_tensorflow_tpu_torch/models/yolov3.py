@@ -209,8 +209,9 @@ def _backbone_forward(conv_fn, x: torch.Tensor, *,
     fused_residual=True passes the pending shortcut to the last conv of
     each residual block as `conv_fn(idx, x, stride, shortcut)` and skips
     the `x + shortcut` here: for forwards that add it in the conv's
-    epilogue (the int8-chained forward adds it in the dequantized domain,
-    before requantizing)."""
+    epilogue (the folded forwards in `ops.conv_epilogue`'s pass; the
+    int8-chained forward in the dequantized domain, before
+    requantizing)."""
     routes: List[torch.Tensor] = []
     shortcut = None
     idx = 0
@@ -390,11 +391,13 @@ def folded_body(folded: Params, images: torch.Tensor, out_fn, *,
     12->128 conv at half resolution, conv_1 as a 2x2 conv padded top and
     left (`layers.conv_folded_asym`). split_neck=True (the default) takes
     every FPN junction in the split form (`layers.neck_split_folded`),
-    False the literal upsample + concat + conv."""
+    False the literal upsample + concat + conv. The last conv of each
+    residual block adds the shortcut in its epilogue (`fused_residual`)."""
 
-    def bn_conv(scope: str, idx: int, x: torch.Tensor, stride: int = 1):
+    def bn_conv(scope: str, idx: int, x: torch.Tensor, stride: int = 1,
+                shortcut=None):
         return conv_folded(x, folded[scope][f"conv_{idx}"], stride=stride,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, shortcut=shortcut)
 
     def neck_fn(lat_idx, first_idx, inter, route):
         return neck_split_folded(inter, route, folded["head"][f"conv_{lat_idx}"],
@@ -402,21 +405,21 @@ def folded_body(folded: Params, images: torch.Tensor, out_fn, *,
                                  compute_dtype=compute_dtype)
 
     if stem_s2d:
-        def backbone_conv(i, x, s):
+        def backbone_conv(i, x, s, shortcut=None):
             if i == 0:              # [N, 12, H/2, W/2] -> [N, 128, H/2, W/2]
                 return bn_conv("backbone", 0, x)
             if i == 1:              # 2x2 over cells (m-1..m, n-1..n)
                 return conv_folded_asym(x, folded["backbone"]["conv_1"],
                                         padding=((1, 0), (1, 0)),
                                         compute_dtype=compute_dtype)
-            return bn_conv("backbone", i, x, s)
+            return bn_conv("backbone", i, x, s, shortcut)
         x = space_to_depth_2x(images, dtype=compute_dtype)
     else:
-        def backbone_conv(i, x, s):
-            return bn_conv("backbone", i, x, s)
+        def backbone_conv(i, x, s, shortcut=None):
+            return bn_conv("backbone", i, x, s, shortcut)
         x = images.to(compute_dtype)
     x = x.permute(0, 3, 1, 2)                          # NCHW, channels_last
-    routes = _backbone_forward(backbone_conv, x)
+    routes = _backbone_forward(backbone_conv, x, fused_residual=True)
     fmaps = _head_forward(lambda i, x: bn_conv("head", i, x), out_fn, routes,
                           neck_fn if split_neck else None)
     return [nhwc(f) for f in fmaps]

@@ -1,0 +1,194 @@
+"""The folded conv's epilogue: its CUDA kernel's wrapper and plain version.
+
+Every folded conv of the serving forward is followed by the same short
+chain over its output: the bias add, LeakyReLU(0.1), and at the end of a
+residual block the add of the shortcut; each FPN junction adds its
+upsampled lateral half to its route half and the bias in fp32 before its
+LeakyReLU (`models/layers.py`). `conv_epilogue` runs that chain in one pass
+over the conv's output (`csrc/conv_epilogue.cu`), in place where the
+output is dense, and gives the chain's values bit for bit.
+
+CUDA tensors go to the kernel, CPU tensors to `conv_epilogue_reference`,
+the chain itself; anything else raises. There is no fallback from one to
+the other. Nothing is built at import: the kernel is compiled at its first
+launch, together with K1 (`nms_cuda.SERVING_KERNELS`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+ALPHA = 0.1                  # the LeakyReLU's slope, before rounding
+BIAS, LEAKY, RESIDUAL, JUNCTION = 0, 1, 2, 3    # the kernel's modes
+_TYPES = (torch.float32, torch.bfloat16)        # y's, and the bias's
+
+
+@functools.lru_cache(maxsize=None)
+def slope(alpha: float, dtype: torch.dtype) -> float:
+    """`alpha` rounded to `dtype`, once per pair: a tensor made per call
+    would cost host time on every activation."""
+    return float(torch.tensor(alpha, dtype=dtype))
+
+
+def _mode(leaky: bool, shortcut, low) -> int:
+    if low is not None:
+        if shortcut is not None or not leaky:
+            raise ValueError("the junction epilogue takes the LeakyReLU and "
+                             "no shortcut")
+        return JUNCTION
+    if shortcut is not None:
+        if not leaky:
+            raise ValueError("a shortcut is added after the LeakyReLU: "
+                             "leaky=False takes none")
+        return RESIDUAL
+    return LEAKY if leaky else BIAS
+
+
+def conv_epilogue_reference(y: torch.Tensor, bias: torch.Tensor, *,
+                            leaky: bool = True,
+                            shortcut: Optional[torch.Tensor] = None,
+                            low: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The plain PyTorch chain that `conv_epilogue` computes, on any
+    device; a new tensor. y [N, C, H, W] is a conv's output in the compute
+    dtype, bias [C].
+
+    Without `low`: `y + bias` with the bias rounded to y's dtype, then
+    (leaky) the LeakyReLU with its slope rounded to y's dtype, then (a
+    shortcut) `+ shortcut`, each rounded to y's dtype. With `low` (the FPN
+    junction; `low` [N, C, H/2, W/2] the lateral half): `up2x(low) + y +
+    bias` in fp32, the LeakyReLU on that fp32 sum, rounded once to y's
+    dtype."""
+    mode = _mode(leaky, shortcut, low)
+    if mode == JUNCTION:
+        s = (F.interpolate(low, scale_factor=2, mode="nearest").float()
+             + y.float() + bias.float().view(1, -1, 1, 1))
+        return F.leaky_relu(s, slope(ALPHA, s.dtype)).to(y.dtype)
+    out = y + bias.to(y.dtype).view(1, -1, 1, 1)
+    if mode != BIAS:
+        out = F.leaky_relu(out, slope(ALPHA, out.dtype))
+    return out if shortcut is None else out + shortcut
+
+
+def _check_operand(t: torch.Tensor, y: torch.Tensor, shape, what: str):
+    if t.device != y.device or t.dtype != y.dtype:
+        raise ValueError(f"{what} is {t.dtype} on {t.device}, y {y.dtype} on "
+                         f"{y.device}: need both alike")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, need {shape}")
+    _check_layout(t, what)
+
+
+def _check_layout(t: torch.Tensor, what: str) -> None:
+    s = t.stride()
+    if s[1] != 1 or t.data_ptr() % 16 or any(
+            s[d] % 8 for d in (0, 2, 3) if t.shape[d] > 1):
+        raise ValueError(f"the epilogue kernel reads {what} 16 bytes at a "
+                         f"time along C: need channels_last memory (channel "
+                         f"stride 1, the strides of the other dimensions "
+                         f"longer than 1 multiples of 8, 16-byte aligned), "
+                         f"got strides {s}")
+
+
+def _dense(t: Optional[torch.Tensor]) -> bool:
+    return t is None or t.is_contiguous(memory_format=torch.channels_last)
+
+
+def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, *,
+                  leaky: bool = True,
+                  shortcut: Optional[torch.Tensor] = None,
+                  low: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The chain of `conv_epilogue_reference`, in one pass: bias add,
+    LeakyReLU (leaky=True), shortcut add (a shortcut given), or the
+    junction's fp32 sum and LeakyReLU (`low` given).
+
+    CUDA tensors go to the hand-written kernel: y bf16 or fp32 in
+    channels_last memory with C % 8 == 0, the bias fp32 or bf16, the
+    shortcut and `low` of y's dtype and layout. The result is written over
+    y where y is dense (the conv's own output), else (a strided window of
+    it) into a new dense tensor, and returned; it carries no gradient.
+    CPU tensors go to `conv_epilogue_reference`. Each kernel launch adds
+    one to `conv_epilogue.launches`."""
+    if y.device.type == "cpu":
+        return conv_epilogue_reference(y, bias, leaky=leaky,
+                                       shortcut=shortcut, low=low)
+    mode = _mode(leaky, shortcut, low)
+    if y.device.type != "cuda":
+        raise ValueError(f"y on {y.device}: the epilogue runs on a CUDA "
+                         f"device (or on the CPU)")
+    if y.dtype not in _TYPES or bias.dtype not in _TYPES:
+        raise TypeError(f"the epilogue kernel takes bf16 or fp32, got y "
+                        f"{y.dtype} and bias {bias.dtype}")
+    if y.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the epilogue kernel has no backward: call it "
+                         "under torch.no_grad() or inference_mode()")
+    if y.dim() != 4 or y.shape[1] % 8:
+        raise ValueError(f"the epilogue kernel takes y [N, C, H, W] with "
+                         f"C % 8 == 0, got {tuple(y.shape)}")
+    n, c, h, w = y.shape
+    if bias.device != y.device or tuple(bias.shape) != (c,) \
+            or bias.stride(0) != 1:
+        raise ValueError(f"need a contiguous bias [{c}] on {y.device}, got "
+                         f"{tuple(bias.shape)} on {bias.device}")
+    _check_layout(y, "y")
+    extra = shortcut if low is None else low
+    if extra is not None:
+        shape = (n, c, h, w) if low is None else (n, c, h // 2, w // 2)
+        if low is not None and (h % 2 or w % 2):
+            raise ValueError(f"the junction upsamples 2x: y's H and W must "
+                             f"be even, got {h} x {w}")
+        _check_operand(extra, y, shape, "shortcut" if low is None else "low")
+    if y.numel() == 0:
+        return y
+    dense_y = _dense(y)
+    out = y if dense_y else torch.empty_like(
+        y, memory_format=torch.channels_last)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    bf16 = int(y.dtype == torch.bfloat16)
+    bias_bf16 = int(bias.dtype == torch.bfloat16)
+    slope_ = slope(ALPHA, torch.float32 if mode == JUNCTION else y.dtype)
+    e_ptr = None if extra is None else extra.data_ptr()
+    dense, strided = _launchers()
+    if mode != JUNCTION and dense_y and _dense(extra):
+        err = dense(out.data_ptr(), y.data_ptr(), e_ptr, bias.data_ptr(),
+                    bf16, bias_bf16, mode, n * h * w, c, slope_, stream)
+    else:
+        se = (0, 0, 0) if extra is None else (
+            extra.stride(0), extra.stride(2), extra.stride(3))
+        err = strided(out.data_ptr(), y.data_ptr(), e_ptr, bias.data_ptr(),
+                      bf16, bias_bf16, mode, n, h, w, c, out.stride(0),
+                      out.stride(2), out.stride(3), y.stride(0), y.stride(2),
+                      y.stride(3), *se, slope_, stream)
+    if err != 0:
+        raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error "
+                           f"{err}")
+    conv_epilogue.launches += 1
+    return out
+
+
+conv_epilogue.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _launchers():
+    """Build (at first use, with K1) and bind conv_epilogue.cu's two C
+    entry points once, with their argument types: (dense, strided).
+    Pointers and the stream are c_void_p so ctypes does not cut them to
+    32 bits."""
+    from yolov3_tensorflow_tpu_torch.ops.nms_cuda import SERVING_KERNELS
+    from yolov3_tensorflow_tpu_torch.utils.kernels import load_kernel
+    lib = load_kernel("conv_epilogue", SERVING_KERNELS)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dense = lib.conv_epilogue_dense
+    dense.argtypes = [p, p, p, p, i, i, i, ll, i, ctypes.c_float, p]
+    dense.restype = i
+    strided = lib.conv_epilogue_strided
+    strided.argtypes = [p, p, p, p, i, i, i, i, i, i, i] + [ll] * 9 + [
+        ctypes.c_float, p]
+    strided.restype = i
+    return dense, strided

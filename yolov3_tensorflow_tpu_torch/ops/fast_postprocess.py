@@ -55,6 +55,7 @@ import torch
 from yolov3_tensorflow_tpu_torch.models.layers import conv2d
 from yolov3_tensorflow_tpu_torch.models.yolov3 import (DETECTION_CONVS,
                                                        folded_body)
+from yolov3_tensorflow_tpu_torch.ops.conv_epilogue import conv_epilogue
 from yolov3_tensorflow_tpu_torch.ops.nms import batched_nms
 from yolov3_tensorflow_tpu_torch.ops.nms_cuda import batched_nms_shared
 
@@ -225,7 +226,7 @@ def apply_split_output_conv(p: dict, x: torch.Tensor, *,
     bc = conv2d(x, p["boxconf"]["w"], compute_dtype=compute_dtype)
     bc = bc.float() + p["boxconf"]["b"].view(1, -1, 1, 1)
     cl = conv2d(x, p["cls"]["w"], compute_dtype=compute_dtype)
-    cl = (cl + p["cls"]["b"].to(cl.dtype).view(1, -1, 1, 1)).to(cls_dtype)
+    cl = conv_epilogue(cl, p["cls"]["b"], leaky=False).to(cls_dtype)
     return bc, cl
 
 
@@ -377,9 +378,9 @@ def apply_packed_output_conv(p: dict, x: torch.Tensor, *,
                              out_dtype: torch.dtype = torch.bfloat16
                              ) -> torch.Tensor:
     """One packed detection conv: NCHW logits in `out_dtype`, the bias added
-    in the conv's dtype."""
+    in the conv's dtype (`ops.conv_epilogue`, in place on the card)."""
     y = conv2d(x, p["packed"]["w"], compute_dtype=compute_dtype)
-    return (y + p["packed"]["b"].to(y.dtype).view(1, -1, 1, 1)).to(out_dtype)
+    return conv_epilogue(y, p["packed"]["b"], leaky=False).to(out_dtype)
 
 
 def yolov3_forward_packed(packed: dict, images: torch.Tensor, *,

@@ -168,12 +168,17 @@ def nms_keep_mask_shared(boxes: torch.Tensor, scores: torch.Tensor,
 
 nms_keep_mask_shared.launches = 0
 
+# the serving path's kernels, K1 and the conv epilogue: the first load of
+# either builds both, in one `build_kernels` call
+SERVING_KERNELS = ("nms_shared", "conv_epilogue")
+
 
 @functools.lru_cache(maxsize=None)
 def _shared_launcher():
-    """Build (at first use) and bind the C entry point of nms_shared.cu."""
+    """Build (at first use, with the conv epilogue) and bind the C entry
+    point of nms_shared.cu."""
     from yolov3_tensorflow_tpu_torch.utils.kernels import load_kernel
-    return bind_shared(load_kernel("nms_shared"))
+    return bind_shared(load_kernel("nms_shared", SERVING_KERNELS))
 
 
 def bind_shared(lib: ctypes.CDLL):

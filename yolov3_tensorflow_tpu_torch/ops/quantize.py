@@ -452,8 +452,8 @@ def yolov3_forward_stem_int8_packed(hp: Params, images: torch.Tensor):
                 shortcut=None if shortcut is None
                 else (shortcut, s_in_b(idx - 1)),
                 s_out=s_out)
-        y = conv_folded(x, packed["backbone"][f"conv_{idx}"], stride=stride)
-        return y if shortcut is None else y + shortcut
+        return conv_folded(x, packed["backbone"][f"conv_{idx}"],
+                           stride=stride, shortcut=shortcut)
 
     x = images.permute(0, 3, 1, 2)
     x0 = _requant(x.float(), s_in_b(0)) if upto > 0 else \

@@ -107,6 +107,17 @@ def bound_nms_shared(b: int, k: int, c: int) -> Tuple[float, str]:
                         b * k * 16.0 + b * k * c * 4.0 + b * c * k, "fp32")
 
 
+def bound_conv_epilogue(numel: int, itemsize: int, extra_numel: int = 0
+                        ) -> Tuple[float, str]:
+    """E1 on one conv's output of `numel` elements of `itemsize` bytes: y
+    read once and written once, the shortcut or the junction's lateral half
+    (`extra_numel` elements of y's dtype) read once, the bias's C values
+    left out; at most 4 fp32 operations an element (the bias add, the
+    LeakyReLU's compare and product, the shortcut's add)."""
+    return kernel_bound(4.0 * numel, float(itemsize)
+                        * (2 * numel + extra_numel), "fp32")
+
+
 def shared_counts(scores: torch.Tensor, keep: torch.Tensor,
                   score_thresh: float) -> Dict[str, float]:
     """What K1's inputs ask of it, per (image, class): valid candidates

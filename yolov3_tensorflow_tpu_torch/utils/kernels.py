@@ -151,7 +151,9 @@ def build_host_library(name: str, compiler: Optional[str] = None) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load_kernel(name: str) -> ctypes.CDLL:
+def load_kernel(name: str, group: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu's library, once per
-    process."""
-    return ctypes.CDLL(str(build_kernel(name)))
+    process. The sources named in `group` are built in the same
+    `build_kernels` call, so kernels used together compile at once."""
+    names = group if name in group else (name, *group)
+    return ctypes.CDLL(str(build_kernels(*names)[name]))

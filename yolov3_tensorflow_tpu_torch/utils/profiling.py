@@ -380,6 +380,17 @@ GUARD_MS = 40.0
 GUARD_GROWTH = 4
 SESSION_TRIES = 4
 MARK_MS = 2.0
+# CUPTI's teardown ends some time after the session has closed, and while
+# it ends it holds the host thread's next CUDA call until the device has
+# drained. On the H100, timed loops of packed detector calls right after a
+# session had their host blocked 50-140 ms in one call and their device
+# idle 15-30 ms (5 of 10 loops); with no session before them, or after a
+# wait, one synchronised call, or a session that kept CUPTI, none of 28.
+# So each session ends with SETTLE_MS of short synchronised launches: the
+# teardown mostly ends there, on an idle device (1 of 10 loops after a
+# settled session still held), not inside the caller's next timed loop.
+SETTLE_MS = 100.0
+SETTLE_SPIN = 1000                     # cycles of each settling launch
 
 
 def device_events(fn: Callable[[], Any], iters: int, *,
@@ -393,6 +404,16 @@ def device_events(fn: Callable[[], Any], iters: int, *,
     spanning the kernels launched in it. fn must not launch
     torch.cuda._sleep itself (its spin kernel marks the calls). Needs a
     CUDA device."""
+    return device_timeline(fn, iters, record_ranges=record_ranges)[0]
+
+
+def device_timeline(fn: Callable[[], Any], iters: int, *,
+                    record_ranges: bool = False
+                    ) -> Tuple[List[Tuple[str, float, float]], float]:
+    """`device_events`' events, and the device's time across the `iters`
+    calls on the same clock, in us: from the first marker's end to the
+    second marker's start. The union of the events falls short of it by
+    the gaps between them, and by any event the profiler lost."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_events traces the GPU: no CUDA device "
                            "here")
@@ -402,9 +423,9 @@ def device_events(fn: Callable[[], Any], iters: int, *,
     guard_ms = GUARD_MS
     for _ in range(SESSION_TRIES):
         events, span_ms = _session(fn, iters, guard_ms, record_ranges)
-        events = marked_events(events, guard_ms * 1e3, span_ms * 1e3)
-        if events is not None:
-            return events
+        marked = _marked(events, guard_ms * 1e3, span_ms * 1e3)
+        if marked is not None:
+            return marked
         guard_ms *= GUARD_GROWTH
     raise RuntimeError(
         f"torch.profiler dropped the calls' device events in {SESSION_TRIES} "
@@ -458,7 +479,23 @@ def _session(fn: Callable[[], Any], iters: int, guard_ms: float,
     events = [(e.name, e.time_range.start, e.time_range.end)
               for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    settle_teardown()
     return events, start.elapsed_time(end)
+
+
+def settle_teardown() -> float:
+    """Short launches, each synchronised, for SETTLE_MS after a profiler
+    session (see the comment above SETTLE_MS). Returns the longest launch
+    and synchronise, in ms: the teardown's hold shows there."""
+    longest = 0.0
+    until = time.perf_counter() + SETTLE_MS / 1e3
+    while True:
+        t0 = time.perf_counter()
+        if t0 >= until:
+            return longest
+        torch.cuda._sleep(SETTLE_SPIN)
+        torch.cuda.synchronize()
+        longest = max(longest, (time.perf_counter() - t0) * 1e3)
 
 
 def marked_events(events: Sequence[Tuple[str, float, float]],
@@ -470,14 +507,24 @@ def marked_events(events: Sequence[Tuple[str, float, float]],
     profiler dropped either marker (a spin shorter than half the guard):
     the calls ran between the two markers, so with both present every
     one of their events is."""
+    marked = _marked(events, guard_us, span_us)
+    return None if marked is None else marked[0]
+
+
+def _marked(events: Sequence[Tuple[str, float, float]], guard_us: float,
+            span_us: float
+            ) -> Optional[Tuple[List[Tuple[str, float, float]], float]]:
+    """`marked_events`' events and the rescaled us between the first
+    marker's end and the second's start, or None."""
     markers = sorted((lo, hi) for name, lo, hi in events
                      if SPIN_KERNEL in name and hi - lo < guard_us / 2)
     if len(markers) != 2:
         return None
-    (a0, _), (_, b1) = markers
+    (a0, a1), (b0, b1) = markers
     scale = span_us / (b1 - a0)
-    return [(name, a0 + (lo - a0) * scale, a0 + (hi - a0) * scale)
-            for name, lo, hi in events if SPIN_KERNEL not in name]
+    return ([(name, a0 + (lo - a0) * scale, a0 + (hi - a0) * scale)
+             for name, lo, hi in events if SPIN_KERNEL not in name],
+            (b0 - a1) * scale)
 
 
 def union_length(spans) -> float:
