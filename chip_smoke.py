@@ -304,7 +304,16 @@ Phases, in order; any failure exits non-zero before the last line:
    once, the output written once, at 3.35 TB/s); the forward with the
    kernel and with the plain chain in turns (device alone, and the host's
    time to issue it); the same forward at batch 8.
-22. prints the kernel record and the device record as JSON; the last line
+22. YOLOv4's Mish epilogues (E1's mish and mish_residual modes) on the
+   main path: build_detector(arch="yolov4", mode="packed") on a seeded
+   init_yolov4 tree (gamma 1, beta 0: about half of every activation's
+   inputs below 0) at the YOLOv4 cell's batch 64, 608^2, bf16. The
+   detector's second request launches the Mish modes 72 times
+   (`conv_epilogue.launches_by_mode`, zeroed before it); the 72 Mish
+   calls of one packed forward, caught, each bit-equal to its plain
+   version on copies of the call's operands; each call's kernel and plain
+   chain on the device alone, summed over the 72, beside the byte bound.
+23. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
    inputs: K2 counts the IoU tests its candidates need) and its library
@@ -348,7 +357,12 @@ KERNELS = {
                     "scripts/exp_mxu_shapes.py:121"),
     "conv_epilogue": ("yolov3_tensorflow_tpu_torch/csrc/conv_epilogue.cu",
                       "none: XLA fuses the epilogue into the TPU's conv"),
+    # E1's Mish instances (conv_epilogue_mish_kernel), a record of their own
+    "conv_epilogue_mish": ("yolov3_tensorflow_tpu_torch/csrc/conv_epilogue.cu",
+                           "none: the JAX package has no YOLOv4"),
 }
+# the libraries to build: each record's source once
+BUILDS = tuple(dict.fromkeys(Path(src).stem for src, _ in KERNELS.values()))
 # the shared-candidate kernel's earlier design (one 8-warp CTA per image,
 # commit 68345cc) on the same candidates, stream held: an H100 80GB HBM3 at
 # 700 W, scripts/compare_revisions.py (PERF.md)
@@ -413,6 +427,9 @@ IOU_REPS = 50                          # batches of IoU matrices timed
 EVAL_BATCH = 8                         # evaluate_batch: the in-train batch
 EPILOGUE_BATCHES = (128, 8)             # phase 21: the offline cell's, and
 EPILOGUE_CALLS = 75                    # entry()'s; calls a packed forward
+YOLOV4_SIZE = 608                      # phase 22: the YOLOv4 cell's input,
+YOLOV4_BATCH = 64                      # its batch
+YOLOV4_MISH_CALLS = 72                 # and its Mish epilogues a forward
 # phase 20: the graft entry points (entry.py)
 ENTRY_ITERS = (5, 20)                  # entry()'s differential at batch 8
 IDLE_ALONE_TOL = 0.01                  # F4: fwd idle share, here vs alone
@@ -3696,11 +3713,12 @@ def epilogue_calls(packed: dict, images: torch.Tensor) -> list:
     from yolov3_tensorflow_tpu_torch.ops import fast_postprocess as fp
     calls = []
 
-    def caught(y, bias, *, leaky=True, shortcut=None, low=None):
-        calls.append((ce._mode(leaky, shortcut, low), y.clone(), bias,
+    def caught(y, bias, *, leaky=True, shortcut=None, low=None,
+               mish=False):
+        calls.append((ce._mode(leaky, shortcut, low, mish), y.clone(), bias,
                       shortcut, low))
         return ce.conv_epilogue(y, bias, leaky=leaky, shortcut=shortcut,
-                                low=low)
+                                low=low, mish=mish)
     kept = layers.conv_epilogue, fp.conv_epilogue
     layers.conv_epilogue = fp.conv_epilogue = caught
     try:
@@ -3825,6 +3843,114 @@ def epilogue_phase(dev: torch.device, card: str, variables: dict,
         torch.cuda.empty_cache()
 
 
+def mish_calls(packed: dict, images: torch.Tensor) -> list:
+    """One YOLOv4 packed forward with its Mish epilogues caught: per call
+    (a copy of y, bias, shortcut), the copy taken before the kernel writes
+    y over."""
+    from yolov3_tensorflow_tpu_torch.models import layers, yolov4
+    from yolov3_tensorflow_tpu_torch.ops import conv_epilogue as ce
+    calls = []
+
+    def caught(y, bias, *, shortcut=None, mish=False, **kw):
+        if mish:
+            calls.append((y.clone(), bias, shortcut))
+        return ce.conv_epilogue(y, bias, shortcut=shortcut, mish=mish, **kw)
+    kept = layers.conv_epilogue
+    layers.conv_epilogue = caught
+    try:
+        with torch.inference_mode():
+            yolov4.yolov4_forward_packed(packed, images)
+    finally:
+        layers.conv_epilogue = kept
+    torch.cuda.synchronize()
+    return calls
+
+
+def yolov4_phase(dev: torch.device, card: str, launches: dict,
+                 max_err: dict, kernel_ms: dict, bounds: dict,
+                 library: dict) -> None:
+    """Phase 22: YOLOv4's Mish epilogues on the main path (see the module
+    docstring). Fills the records of conv_epilogue_mish."""
+    from yolov3_tensorflow_tpu_torch.models.yolov4 import init_yolov4
+    from yolov3_tensorflow_tpu_torch.ops import conv_epilogue as ce
+    from yolov3_tensorflow_tpu_torch.ops.postprocess import build_detector
+    from yolov3_tensorflow_tpu_torch.scripts import roofline
+    from yolov3_tensorflow_tpu_torch.utils.profiling import cuda_ms
+    hw = (YOLOV4_SIZE, YOLOV4_SIZE)
+    anchors = np.asarray([[12, 16], [19, 36], [40, 28], [36, 75], [76, 55],
+                          [72, 146], [142, 110], [192, 243], [459, 401]],
+                         np.float32)
+    variables = init_yolov4(torch.Generator().manual_seed(0), C, device=dev)
+    det = build_detector(variables, anchors, C, hw, device=dev,
+                         compute_dtype=torch.bfloat16, mode="packed",
+                         arch="yolov4", **SERVING)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    images = torch.rand((YOLOV4_BATCH,) + hw + (3,), generator=gen,
+                        device=dev)
+    det(images)                              # the first call builds
+    torch.cuda.synchronize()
+    by_mode = ce.conv_epilogue.launches_by_mode
+    for mode in by_mode:
+        by_mode[mode] = 0
+    out = det(images)
+    torch.cuda.synchronize()
+    n = by_mode["mish"] + by_mode["mish_residual"]
+    launches["conv_epilogue_mish"] = n
+    print(f"YOLOv4 packed detector at batch {YOLOV4_BATCH}, "
+          f"{YOLOV4_SIZE}^2: epilogue launches by mode {dict(by_mode)}; "
+          f"{int(out['valid'].sum())} detections")
+    check(n == YOLOV4_MISH_CALLS,
+          f"a YOLOv4 request launched the Mish modes {n} times, not "
+          f"{YOLOV4_MISH_CALLS}")
+    check(bool(torch.isfinite(out["boxes"]).all()
+               and torch.isfinite(out["scores"]).all()),
+          "YOLOv4: non-finite detections")
+    del out
+
+    calls = mish_calls(det.packed, images)
+    del det, images
+    check(len(calls) == YOLOV4_MISH_CALLS,
+          f"a YOLOv4 packed forward made {len(calls)} Mish epilogue calls, "
+          f"not {YOLOV4_MISH_CALLS}")
+    k_sum = p_sum = bound_sum = gb_sum = neg = 0.0
+    elems = 0
+    with torch.inference_mode():
+        for y, bias, shortcut in calls:
+            kw = dict(shortcut=shortcut, mish=True)
+            want = ce.conv_epilogue_reference(y, bias, **kw)
+            got = ce.conv_epilogue(y.clone(), bias, **kw)
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"conv_epilogue mish {tuple(y.shape)} shortcut "
+                  f"{shortcut is not None}: kernel and plain version differ")
+            # the activation's input, y + b, as the kernel forms it
+            neg += float(((y.float() + bias.float().view(1, -1, 1, 1))
+                          < 0).sum())
+            elems += y.numel()
+            del got, want
+            extra_n = 0 if shortcut is None else shortcut.numel()
+            buf = y.clone()
+            k_sum += cuda_ms(lambda: ce.conv_epilogue(buf, bias, **kw), 5)
+            p_sum += cuda_ms(
+                lambda: ce.conv_epilogue_reference(y, bias, **kw), 3)
+            del buf
+            gb_sum += (2 * y.numel() + extra_n) * y.element_size() / 1e9
+            bound_sum += roofline.bound_conv_epilogue(
+                y.numel(), y.element_size(), extra_n)[0]
+    del calls
+    torch.cuda.empty_cache()
+    max_err["conv_epilogue_mish"] = 0.0
+    kernel_ms["conv_epilogue_mish"] = (k_sum, p_sum)
+    bounds["conv_epilogue_mish"] = (bound_sum, "bytes")
+    library["conv_epilogue_mish"] = None     # no single torch call
+    print(f"conv_epilogue mish over the {YOLOV4_MISH_CALLS} calls at batch "
+          f"{YOLOV4_BATCH}, {YOLOV4_SIZE}^2, each bit-equal to its plain "
+          f"version ({neg / elems:.3f} of their inputs below 0): kernel "
+          f"{k_sum:.4f} ms ({gb_sum:.3f} GB, {gb_sum / k_sum * 1e3:.0f} "
+          f"GB/s), plain chain {p_sum:.4f} ms; bound {bound_sum:.4f} ms "
+          f"(bytes at {roofline.H100_PEAKS['hbm'] / 1e9:.0f} GB/s): "
+          f"{bound_sum / k_sum * 100:.1f}% [{card}]")
+
+
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3871,8 +3997,8 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    libs = kernels.build_kernels(*KERNELS)
-    print(f"build {', '.join(KERNELS)} (one nvcc each, in parallel): "
+    libs = kernels.build_kernels(*BUILDS)
+    print(f"build {', '.join(BUILDS)} (one nvcc each, in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         print(f"  {name} -> {lib.relative_to(ROOT)}")
@@ -4271,7 +4397,13 @@ def main() -> int:
     print(f"conv epilogue: {time.perf_counter() - t0:.1f} s wall")
     check_no_jax()
 
-    # ---- 22. records -----------------------------------------------------
+    # ---- 22. YOLOv4's Mish epilogues --------------------------------------
+    t0 = time.perf_counter()
+    yolov4_phase(dev, card, launches, max_err, kernel_ms, bounds, library)
+    print(f"YOLOv4 Mish epilogues: {time.perf_counter() - t0:.1f} s wall")
+    check_no_jax()
+
+    # ---- 23. records -----------------------------------------------------
     extra = {"nms_shared": {"p50_k128": k128}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,

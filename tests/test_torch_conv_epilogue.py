@@ -324,12 +324,13 @@ def _record_and_compare(monkeypatch, seen: list):
     """Patch the folded layers' epilogue so each call runs the kernel and
     the plain version on copies of its operands and compares their bits;
     `seen` gets (mode, y's shape, y dense) per call."""
-    def checked(y, bias, *, leaky=True, shortcut=None, low=None):
-        kw = dict(leaky=leaky, shortcut=shortcut, low=low)
+    def checked(y, bias, *, leaky=True, shortcut=None, low=None,
+                mish=False):
+        kw = dict(leaky=leaky, shortcut=shortcut, low=low, mish=mish)
         want = ce.conv_epilogue_reference(y, bias, **kw)
         got = ce.conv_epilogue(y.clone() if y.is_contiguous(
             memory_format=torch.channels_last) else y, bias, **kw)
-        mode = ce._mode(leaky, shortcut, low)
+        mode = ce._mode(leaky, shortcut, low, mish)
         dense = y.is_contiguous(memory_format=torch.channels_last)
         assert _same_bits(got, want), (mode, tuple(y.shape))
         seen.append((mode, tuple(y.shape), dense))
@@ -430,3 +431,72 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(card):
     before = ce.conv_epilogue.launches
     ce.conv_epilogue(y, torch.zeros(16, device=card))
     assert ce.conv_epilogue.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The Mish modes (YOLOv4's backbone) on the card
+# ---------------------------------------------------------------------------
+
+MISH_MODES = ("mish", "mish_residual")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MISH_MODES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_mish_bit_equal_on_special_values(card, dtype, mode):
+    """Each Mish mode against its plain chain on the card (PyTorch's own
+    softplus and tanh kernels): dense and as a strided window, a bf16 bias
+    too, over the special values and values around softplus's threshold
+    of 20."""
+    for seed, shape in enumerate(((2, 16, 4, 6), (3, 264, 6, 10),
+                                  (1, 1024, 2, 2))):
+        y, bias, shortcut, _ = (None if t is None else t.to(card) for t in
+                                _operands(DTYPES[dtype], "residual", seed,
+                                          shape))
+        y[:, :8] = torch.linspace(-30, 30, y[:, :8].numel(),
+                                  device=card).view_as(y[:, :8]).to(y.dtype)
+        kw = dict(mish=True, shortcut=shortcut if mode == "mish_residual"
+                  else None)
+        for b in (bias, bias.to(torch.bfloat16)):
+            want = ce.conv_epilogue_reference(y, b, **kw)
+            got = ce.conv_epilogue(y.clone(), b, **kw)
+            assert _same_bits(got, want), (shape, b.dtype)
+        big = torch.zeros((shape[0], shape[2] + 1, shape[3] + 2, shape[1]),
+                          dtype=y.dtype, device=card).permute(0, 3, 1, 2)
+        big[:, :, 1:, 2:] = y
+        win = big[:, :, 1:, 2:]
+        got = ce.conv_epilogue(win, bias, **kw)
+        assert got.data_ptr() != win.data_ptr()
+        assert _same_bits(got, ce.conv_epilogue_reference(y, bias, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_yolov4_forward_every_mish_epilogue_bit_equal(card,
+                                                           monkeypatch):
+    """Every epilogue of YOLOv4's packed forward at batch 64 and 608^2,
+    kernel against plain chain on the same operands: its 72 Mish calls (23
+    of them adding a shortcut), 35 LeakyReLU and 3 bias; then the kernel's
+    own launches a forward, counted by mode."""
+    from yolov3_tensorflow_tpu_torch.models import yolov4
+    gen = torch.Generator(card).manual_seed(9)
+    tree = fp.pack_serving_head(fold_batch_norm(yolov4.init_yolov4(
+        gen, 80, device=card)), 80, names=yolov4.DETECTION_CONVS)
+    images = torch.rand((64, 608, 608, 3), device=card, generator=gen)
+    seen = []
+    _record_and_compare(monkeypatch, seen)
+    with torch.inference_mode():
+        yolov4.yolov4_forward_packed(tree, images)
+    torch.cuda.synchronize()
+    modes = [m for m, _, _ in seen]
+    assert len(seen) == 110 and all(d for _, _, d in seen)
+    assert (modes.count(ce.MISH), modes.count(ce.MISH_RESIDUAL),
+            modes.count(ce.LEAKY), modes.count(ce.BIAS)) == (49, 23, 35, 3)
+    monkeypatch.undo()
+    before = dict(ce.conv_epilogue.launches_by_mode)
+    with torch.inference_mode():
+        yolov4.yolov4_forward_packed(tree, images[:8])
+    after = ce.conv_epilogue.launches_by_mode
+    assert {k: after[k] - before[k] for k in after} == {
+        "bias": 3, "leaky": 35, "residual": 0, "junction": 0, "mish": 49,
+        "mish_residual": 23}

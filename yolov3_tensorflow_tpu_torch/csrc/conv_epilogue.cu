@@ -1,6 +1,6 @@
 // The folded conv's epilogue in one pass over the conv's output, for Hopper
-// (sm_90a): the bias add, LeakyReLU(0.1) and the residual add of the
-// serving forward, and the FPN junction's sum.
+// (sm_90a): the bias add, LeakyReLU(0.1) or Mish and the residual add of
+// the serving forward, and the FPN junction's sum.
 //
 // Replaces no TPU kernel: on the TPU, XLA fuses the same epilogue into the
 // conv it follows (yolov3_tensorflow_tpu/models/layers.py: conv_folded,
@@ -10,7 +10,7 @@
 // again for the residual add. Its plain PyTorch version is
 // ops/conv_epilogue.py:conv_epilogue_reference, that chain unchanged.
 //
-// Four modes, each its own template instance; the wrapper picks one from
+// Six modes, each its own template instance; the wrapper picks one from
 // the operands the call passes. y is the conv's output [N, H, W, C]
 // (channels_last) of T = bf16 or fp32, b the bias [C] (fp32 or bf16):
 //   kBias      out = rnd(y + rnd(b))                  the packed output conv
@@ -23,14 +23,22 @@
 //                                                     lateral half at low
 //                                                     resolution, y the route
 //                                                     half, summed in fp32
+//   kMish      out = rnd(mish(rnd(y + rnd(b))))       YOLOv4's backbone convs
+//   kMishResidual out = rnd(rnd(mish(rnd(y + rnd(b)))) + e)
+//                                                     their residual blocks'
+//                                                     last conv
 // rnd() rounds a float to T to nearest even (__float2bfloat16, the
 // conversion PyTorch's own CUDA kernels use from sm_80 on), and
 // leaky(x) = x > 0 ? x : x * slope, with the slope the wrapper passes: 0.1
 // rounded to T, or to fp32 at the junction, whose chain applies it to the
-// fp32 sum. Every value is computed in float, as PyTorch computes bf16
-// elementwise (its opmath type), and rounded where the chain stores;
-// --fmad=false keeps the product out of an FMA. So every output bit equals
-// the chain's, NaN and subnormal values included.
+// fp32 sum. mish(x) = x * tanhf(softplus(x)) in fp32, softplus(x) =
+// x > 20 ? x : log1pf(expf(x)): PyTorch's softplus and tanh kernels, which
+// call the same CUDA math functions in float. Every value is computed in
+// float, as PyTorch computes bf16 elementwise (its opmath type), and
+// rounded where the chain stores; --fmad=false keeps the product out of an
+// FMA. So every output bit equals the chain's, NaN and subnormal values
+// included. The Mish modes run under a kernel name of their own
+// (conv_epilogue_mish_kernel), so that a device trace tells them apart.
 //
 // What bounds it: device-memory bytes. A value is read once (twice with e)
 // and written once for a handful of float operations: at batch 128 and
@@ -59,7 +67,18 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
-enum Mode { kBias = 0, kLeaky = 1, kResidual = 2, kJunction = 3 };
+enum Mode {
+  kBias = 0,
+  kLeaky = 1,
+  kResidual = 2,
+  kJunction = 3,
+  kMish = 4,
+  kMishResidual = 5
+};
+
+__host__ __device__ constexpr bool is_mish(int mode) {
+  return mode == kMish || mode == kMishResidual;
+}
 
 struct Strides {          // in elements; the channel stride is 1
   long long n, h, w;
@@ -68,7 +87,8 @@ struct Strides {          // in elements; the channel stride is 1
 struct Args {
   void* out;
   const void* y;
-  const void* e;          // kResidual: the shortcut; kJunction: the lateral
+  const void* e;          // k(Mish)Residual: the shortcut; kJunction: the
+                          // lateral
   const void* bias;
   int bias_bf16;
   int c8;                 // C / 8
@@ -145,9 +165,14 @@ __device__ __forceinline__ long long at(const Strides& s, unsigned n,
   return n * s.n + h * s.h + w * s.w;
 }
 
+__device__ __forceinline__ float mish(float x) {
+  const float sp = x > 20.f ? x : log1pf(expf(x));
+  return x * tanhf(sp);
+}
+
+// The body of every instance; the two __global__ names below wrap it.
 template <typename T, int kMode, bool kStrided>
-__global__ void __launch_bounds__(kThreads)
-    conv_epilogue_kernel(const Args g) {
+__device__ __forceinline__ void epilogue(const Args& g) {
   using Raw = typename IO<T>::Raw;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= g.stride) return;
@@ -161,7 +186,8 @@ __global__ void __launch_bounds__(kThreads)
             : static_cast<const float*>(g.bias)[c + i];
     b[i] = kMode == kJunction ? v : IO<T>::round(v);
   }
-  constexpr bool kE = kMode == kResidual || kMode == kJunction;
+  constexpr bool kE =
+      kMode == kResidual || kMode == kJunction || kMode == kMishResidual;
   const long long pstep = g.stride / g.c8;   // pixels between a thread's steps
   long long p0 = t / g.c8;
   for (long long v0 = t; v0 < g.vectors;
@@ -201,8 +227,11 @@ __global__ void __launch_bounds__(kThreads)
             r = r > 0.f ? r : r * g.slope;
           } else {
             r = IO<T>::round(x[i] + b[i]);
-            if (kMode != kBias) r = IO<T>::round(r > 0.f ? r : r * g.slope);
-            if (kMode == kResidual) r = r + e[i];
+            if (is_mish(kMode))
+              r = IO<T>::round(mish(r));
+            else if (kMode != kBias)
+              r = IO<T>::round(r > 0.f ? r : r * g.slope);
+            if (kMode == kResidual || kMode == kMishResidual) r = r + e[i];
           }
           x[i] = r;
         }
@@ -210,6 +239,18 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+}
+
+template <typename T, int kMode, bool kStrided>
+__global__ void __launch_bounds__(kThreads)
+    conv_epilogue_kernel(const Args g) {
+  epilogue<T, kMode, kStrided>(g);
+}
+
+template <typename T, int kMode, bool kStrided>
+__global__ void __launch_bounds__(kThreads)
+    conv_epilogue_mish_kernel(const Args g) {
+  epilogue<T, kMode, kStrided>(g);
 }
 
 int sm_count() {
@@ -221,12 +262,22 @@ int sm_count() {
   return sms[dev];
 }
 
+// The instance's __global__ name: only the one it launches is compiled.
+template <typename T, int kMode, bool kStrided>
+constexpr auto kernel_of() {
+  if constexpr (is_mish(kMode))
+    return conv_epilogue_mish_kernel<T, kMode, kStrided>;
+  else
+    return conv_epilogue_kernel<T, kMode, kStrided>;
+}
+
 template <typename T, int kMode, bool kStrided>
 cudaError_t launch(Args g, cudaStream_t st) {
+  constexpr auto kernel = kernel_of<T, kMode, kStrided>();
   static int per_sm = 0;    // resident blocks an SM, once per instance
   if (per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, conv_epilogue_kernel<T, kMode, kStrided>, kThreads, 0);
+        &per_sm, kernel, kThreads, 0);
     if (e != cudaSuccess) return e;
   }
   const int sms = sm_count();
@@ -237,8 +288,7 @@ cudaError_t launch(Args g, cudaStream_t st) {
   if (threads < g.c8) threads = g.c8;
   g.stride = threads / g.c8 * g.c8;
   const long long blocks = (g.stride + kThreads - 1) / kThreads;
-  conv_epilogue_kernel<T, kMode, kStrided>
-      <<<unsigned(blocks), kThreads, 0, st>>>(g);
+  kernel<<<unsigned(blocks), kThreads, 0, st>>>(g);
   return cudaGetLastError();
 }
 
@@ -251,6 +301,8 @@ cudaError_t dispatch(int mode, const Args& g, cudaStream_t st) {
     case kJunction:
       if constexpr (kStrided) return launch<T, kJunction, true>(g, st);
       break;
+    case kMish: return launch<T, kMish, kStrided>(g, st);
+    case kMishResidual: return launch<T, kMishResidual, kStrided>(g, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -265,8 +317,9 @@ int run(int bf16, int mode, const Args& g, void* stream) {
 bool bad(const void* out, const void* y, const void* e, const void* bias,
          int mode, long long pixels, int c) {
   return out == nullptr || y == nullptr || bias == nullptr || mode < kBias ||
-         mode > kJunction || ((mode == kResidual || mode == kJunction) &&
-                              e == nullptr) ||
+         mode > kMishResidual ||
+         ((mode == kResidual || mode == kJunction || mode == kMishResidual) &&
+          e == nullptr) ||
          pixels <= 0 || c <= 0 || c % 8 != 0;
 }
 
@@ -274,7 +327,7 @@ bool bad(const void* out, const void* y, const void* e, const void* bias,
 
 // Dense operands: out, y and e are [pixels, c] row-major (a channels_last
 // tensor), 16-byte aligned; out may be y. bf16 selects T (else fp32),
-// bias_bf16 the bias's type; mode kBias, kLeaky or kResidual. Returns the
+// bias_bf16 the bias's type; any mode but kJunction. Returns the
 // cudaError_t of the launch.
 extern "C" int conv_epilogue_dense(void* out, const void* y, const void* e,
                                    const void* bias, int bf16, int bias_bf16,
@@ -290,7 +343,7 @@ extern "C" int conv_epilogue_dense(void* out, const void* y, const void* e,
   return run<false>(bf16, mode, g, stream);
 }
 
-// Strided operands: out and y [n, h, w, c], e [n, h, w, c] (kResidual) or
+// Strided operands: out and y [n, h, w, c], e [n, h, w, c] (a residual) or
 // [n, h/2, w/2, c] (kJunction), each with its own n, h and w strides in
 // elements (multiples of 8) and a channel stride of 1, 16-byte aligned;
 // n * h * w < 2^31. Any mode.

@@ -59,12 +59,14 @@ def _channel(v: torch.Tensor) -> torch.Tensor:
 
 def conv_folded(x: torch.Tensor, p: Params, *, stride: int = 1,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                shortcut: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Conv with BN folded into (w, b), then leaky (JAX `conv_folded`);
-    with a `shortcut`, the residual block's `+ shortcut` after it. The
-    epilogue is `ops.conv_epilogue`'s, in place on the card."""
+                shortcut: Optional[torch.Tensor] = None,
+                mish: bool = False) -> torch.Tensor:
+    """Conv with BN folded into (w, b), then leaky (JAX `conv_folded`), or
+    Mish with mish=True; with a `shortcut`, the residual block's
+    `+ shortcut` after it. The epilogue is `ops.conv_epilogue`'s, in place
+    on the card."""
     y = conv2d(x, p["w"], stride=stride, compute_dtype=compute_dtype)
-    return conv_epilogue(y, p["b"], shortcut=shortcut)
+    return conv_epilogue(y, p["b"], shortcut=shortcut, mish=mish)
 
 
 def conv_folded_asym(x: torch.Tensor, p: Params, *,

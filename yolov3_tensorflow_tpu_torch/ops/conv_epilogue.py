@@ -1,12 +1,13 @@
 """The folded conv's epilogue: its CUDA kernel's wrapper and plain version.
 
 Every folded conv of the serving forward is followed by the same short
-chain over its output: the bias add, LeakyReLU(0.1), and at the end of a
-residual block the add of the shortcut; each FPN junction adds its
-upsampled lateral half to its route half and the bias in fp32 before its
-LeakyReLU (`models/layers.py`). `conv_epilogue` runs that chain in one pass
-over the conv's output (`csrc/conv_epilogue.cu`), in place where the
-output is dense, and gives the chain's values bit for bit.
+chain over its output: the bias add, LeakyReLU(0.1) (Mish in YOLOv4's
+backbone), and at the end of a residual block the add of the shortcut;
+each FPN junction adds its upsampled lateral half to its route half and
+the bias in fp32 before its LeakyReLU (`models/layers.py`).
+`conv_epilogue` runs that chain in one pass over the conv's output
+(`csrc/conv_epilogue.cu`), in place where the output is dense, and gives
+the chain's values bit for bit.
 
 CUDA tensors go to the kernel, CPU tensors to `conv_epilogue_reference`,
 the chain itself; anything else raises. There is no fallback from one to
@@ -24,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 ALPHA = 0.1                  # the LeakyReLU's slope, before rounding
-BIAS, LEAKY, RESIDUAL, JUNCTION = 0, 1, 2, 3    # the kernel's modes
+BIAS, LEAKY, RESIDUAL, JUNCTION, MISH, MISH_RESIDUAL = range(6)  # modes
+MODE_NAMES = ("bias", "leaky", "residual", "junction", "mish",
+              "mish_residual")
 _TYPES = (torch.float32, torch.bfloat16)        # y's, and the bias's
 
 
@@ -35,7 +38,20 @@ def slope(alpha: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(alpha, dtype=dtype))
 
 
-def _mode(leaky: bool, shortcut, low) -> int:
+def mish_activation(x: torch.Tensor) -> torch.Tensor:
+    """x * tanh(softplus(x)) (arXiv:1908.08681) in fp32, softplus(x) = x
+    above 20 (PyTorch's and darknet's threshold), rounded once to x's
+    dtype."""
+    f = x.float()
+    return (f * torch.tanh(F.softplus(f))).to(x.dtype)
+
+
+def _mode(leaky: bool, shortcut, low, mish: bool = False) -> int:
+    if mish:
+        if low is not None:
+            raise ValueError("the junction epilogue takes the LeakyReLU, "
+                             "not Mish")
+        return MISH if shortcut is None else MISH_RESIDUAL
     if low is not None:
         if shortcut is not None or not leaky:
             raise ValueError("the junction epilogue takes the LeakyReLU and "
@@ -52,8 +68,8 @@ def _mode(leaky: bool, shortcut, low) -> int:
 def conv_epilogue_reference(y: torch.Tensor, bias: torch.Tensor, *,
                             leaky: bool = True,
                             shortcut: Optional[torch.Tensor] = None,
-                            low: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            low: Optional[torch.Tensor] = None,
+                            mish: bool = False) -> torch.Tensor:
     """The plain PyTorch chain that `conv_epilogue` computes, on any
     device; a new tensor. y [N, C, H, W] is a conv's output in the compute
     dtype, bias [C].
@@ -63,14 +79,18 @@ def conv_epilogue_reference(y: torch.Tensor, bias: torch.Tensor, *,
     shortcut) `+ shortcut`, each rounded to y's dtype. With `low` (the FPN
     junction; `low` [N, C, H/2, W/2] the lateral half): `up2x(low) + y +
     bias` in fp32, the LeakyReLU on that fp32 sum, rounded once to y's
-    dtype."""
-    mode = _mode(leaky, shortcut, low)
+    dtype. mish=True takes `mish_activation` in the LeakyReLU's place
+    (and ignores `leaky`): `y + bias` rounded, Mish in fp32 rounded, then
+    the shortcut's add rounded."""
+    mode = _mode(leaky, shortcut, low, mish)
     if mode == JUNCTION:
         s = (F.interpolate(low, scale_factor=2, mode="nearest").float()
              + y.float() + bias.float().view(1, -1, 1, 1))
         return F.leaky_relu(s, slope(ALPHA, s.dtype)).to(y.dtype)
     out = y + bias.to(y.dtype).view(1, -1, 1, 1)
-    if mode != BIAS:
+    if mode in (MISH, MISH_RESIDUAL):
+        out = mish_activation(out)
+    elif mode != BIAS:
         out = F.leaky_relu(out, slope(ALPHA, out.dtype))
     return out if shortcut is None else out + shortcut
 
@@ -102,10 +122,11 @@ def _dense(t: Optional[torch.Tensor]) -> bool:
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, *,
                   leaky: bool = True,
                   shortcut: Optional[torch.Tensor] = None,
-                  low: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  low: Optional[torch.Tensor] = None,
+                  mish: bool = False) -> torch.Tensor:
     """The chain of `conv_epilogue_reference`, in one pass: bias add,
-    LeakyReLU (leaky=True), shortcut add (a shortcut given), or the
-    junction's fp32 sum and LeakyReLU (`low` given).
+    LeakyReLU (leaky=True) or Mish (mish=True), shortcut add (a shortcut
+    given), or the junction's fp32 sum and LeakyReLU (`low` given).
 
     CUDA tensors go to the hand-written kernel: y bf16 or fp32 in
     channels_last memory with C % 8 == 0, the bias fp32 or bf16, the
@@ -113,11 +134,12 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, *,
     y where y is dense (the conv's own output), else (a strided window of
     it) into a new dense tensor, and returned; it carries no gradient.
     CPU tensors go to `conv_epilogue_reference`. Each kernel launch adds
-    one to `conv_epilogue.launches`."""
+    one to `conv_epilogue.launches` and one to its mode's count in
+    `conv_epilogue.launches_by_mode` (keyed by MODE_NAMES)."""
     if y.device.type == "cpu":
         return conv_epilogue_reference(y, bias, leaky=leaky,
-                                       shortcut=shortcut, low=low)
-    mode = _mode(leaky, shortcut, low)
+                                       shortcut=shortcut, low=low, mish=mish)
+    mode = _mode(leaky, shortcut, low, mish)
     if y.device.type != "cuda":
         raise ValueError(f"y on {y.device}: the epilogue runs on a CUDA "
                          f"device (or on the CPU)")
@@ -168,10 +190,12 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, *,
         raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error "
                            f"{err}")
     conv_epilogue.launches += 1
+    conv_epilogue.launches_by_mode[MODE_NAMES[mode]] += 1
     return out
 
 
 conv_epilogue.launches = 0
+conv_epilogue.launches_by_mode = dict.fromkeys(MODE_NAMES, 0)
 
 
 @functools.lru_cache(maxsize=None)

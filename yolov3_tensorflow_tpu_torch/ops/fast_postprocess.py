@@ -63,34 +63,45 @@ _LANE = 128
 
 
 @functools.lru_cache(maxsize=32)
-def _decode_tables(img_h: int, img_w: int, anchors_key: Tuple[float, ...]
-                   ) -> Tuple[np.ndarray, ...]:
+def _decode_tables(img_h: int, img_w: int, anchors_key: Tuple[float, ...],
+                   scale_key: Tuple[float, ...]) -> Tuple[np.ndarray, ...]:
     """Flat per-anchor decode constants in global anchor order
-    (scale 32 -> 16 -> 8; row-major y, x, anchor within each scale):
-    grid x, grid y, stride x, stride y, anchor w, anchor h."""
+    (scale 32 -> 16 -> 8, anchors 6-8, 3-5, 0-2; row-major y, x, anchor
+    within each scale): grid x and grid y, each shifted by -(s - 1) / 2,
+    stride x, stride y, anchor w, anchor h, and s, with s each scale's
+    scale_x_y (`scale_key`, strides 32, 16, 8; darknet's grid
+    sensitivity). At s = 1 the shift is -0 and the grid rows are exact."""
     anchors = np.asarray(anchors_key, np.float32).reshape(9, 2)
     groups = [anchors[6:9], anchors[3:6], anchors[0:3]]
-    xs, ys, rws, rhs, aws, ahs = [], [], [], [], [], []
-    for stride, group in zip((32, 16, 8), groups):
+    xs, ys, rws, rhs, aws, ahs, ss = [], [], [], [], [], [], []
+    for i, (stride, group) in enumerate(zip((32, 16, 8), groups)):
         hg, wg = img_h // stride, img_w // stride
         yy, xx = np.mgrid[0:hg, 0:wg]
+        s = np.float32(scale_key[i])
+        shift = np.float32(-0.5) * (s - 1)
         for arr, val in ((xs, np.repeat(xx[..., None], 3, -1)),
                          (ys, np.repeat(yy[..., None], 3, -1))):
-            arr.append(val.reshape(-1).astype(np.float32))
+            arr.append(val.reshape(-1).astype(np.float32) + shift)
         n = hg * wg * 3
         rws.append(np.full(n, img_w / wg, np.float32))
         rhs.append(np.full(n, img_h / hg, np.float32))
         aws.append(np.tile(group[:, 0], hg * wg).astype(np.float32))
         ahs.append(np.tile(group[:, 1], hg * wg).astype(np.float32))
-    return tuple(np.concatenate(v) for v in (xs, ys, rws, rhs, aws, ahs))
+        ss.append(np.full(n, s, np.float32))
+    return tuple(np.concatenate(v) for v in (xs, ys, rws, rhs, aws, ahs, ss))
 
 
 def decode_tables(img_size: Tuple[int, int], anchors: np.ndarray, *,
-                  device: torch.device) -> torch.Tensor:
-    """`_decode_tables` stacked into one [6, A] fp32 tensor on `device`."""
+                  device: torch.device,
+                  scale_x_y: Sequence[float] = (1.0, 1.0, 1.0)
+                  ) -> torch.Tensor:
+    """`_decode_tables` stacked into one [7, A] fp32 tensor on `device`,
+    with each scale's `scale_x_y` (strides 32, 16, 8; YOLOv3's are 1,
+    where the centre comes out bit for bit as sigmoid(t) + cell)."""
     tabs = _decode_tables(int(img_size[0]), int(img_size[1]),
                           tuple(np.asarray(anchors, np.float32)
-                                .reshape(-1).tolist()))
+                                .reshape(-1).tolist()),
+                          tuple(float(s) for s in scale_x_y))
     return torch.from_numpy(np.stack(tabs)).to(device)
 
 
@@ -132,10 +143,13 @@ def _decode(rows_box: torch.Tensor, cand: torch.Tensor, tables: torch.Tensor
             ) -> torch.Tensor:
     """Candidate box logits [B, K, 4] (tx ty tw th, fp32) at global anchor
     indices cand [B, K] -> xyxy boxes [B, K, 4] in input pixels, through
-    the flat decode tables (exp(tw) unclamped, as the JAX fast paths)."""
-    gx, gy, grw, grh, gaw, gah = tables[:, cand]                # [B, K] each
-    cx = (torch.sigmoid(rows_box[..., 0]) + gx) * grw
-    cy = (torch.sigmoid(rows_box[..., 1]) + gy) * grh
+    the flat decode tables (exp(tw) unclamped, as the JAX fast paths).
+    The centre is darknet's yolo layer's: (sigmoid(t) * s - (s - 1) / 2 +
+    cell) * stride, with s the scale's scale_x_y, in YOLOv3's three
+    kernels a coordinate (at s = 1, (sigmoid(t) + cell) * stride)."""
+    gx, gy, grw, grh, gaw, gah, scale = tables[:, cand]         # [B, K] each
+    cx = torch.addcmul(gx, torch.sigmoid(rows_box[..., 0]), scale) * grw
+    cy = torch.addcmul(gy, torch.sigmoid(rows_box[..., 1]), scale) * grh
     w = torch.exp(rows_box[..., 2]) * gaw
     h = torch.exp(rows_box[..., 3]) * gah
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
@@ -345,16 +359,18 @@ def postprocess_split(split_outs, anchors: np.ndarray, num_classes: int,
 # ---------------------------------------------------------------------------
 
 def pack_serving_head(folded: dict, num_classes: int,
-                      out_dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Rewrite the folded detection convs (head conv_6/14/22) for
-    `yolov3_forward_packed`: each becomes {"packed": {w [3*row, cin, 1, 1],
-    b [3*row] out_dtype}} with the block layout in the module docstring.
-    The kernel keeps its dtype; the bias is rounded to `out_dtype` here,
-    as the JAX package does."""
+                      out_dtype: torch.dtype = torch.bfloat16,
+                      names: Sequence[str] = DETECTION_CONVS) -> dict:
+    """Rewrite the folded detection convs `names` of the head (YOLOv3's
+    conv_6/14/22 by default; `models.yolov4.DETECTION_CONVS` for YOLOv4)
+    for the packed forwards: each becomes {"packed": {w [3*row, cin, 1,
+    1], b [3*row] out_dtype}} with the block layout in the module
+    docstring. The kernel keeps its dtype; the bias is rounded to
+    `out_dtype` here, as the JAX package does."""
     row = head_row_width(num_classes)
     need = 5 + num_classes
     out = {scope: dict(v) for scope, v in folded.items()}
-    for name in DETECTION_CONVS:
+    for name in names:
         p = folded["head"][name]
         w, b = p["w"].float(), p["b"].float()         # [3*need, cin, 1, 1]
         wp = w.new_zeros((3 * row,) + tuple(w.shape[1:]))

@@ -4,9 +4,10 @@ output.
 Counterpart of `yolov3_tensorflow_tpu/ops/postprocess.py`. `build_detector`
 folds BN into the conv kernels once, moves the weights and decode tables to
 the device, and returns an `nn.Module` whose forward runs the whole chain
-on the device: the BN-folded Darknet-53 + FPN, then one of the
-postprocesses of `build_detector`'s modes, each ending in a CUDA NMS
-kernel on the GPU. `select_serving_mode` and `build_auto_detector` pick a
+on the device: the BN-folded Darknet-53 + FPN (or, arch="yolov4" on the
+packed path, CSPDarknet-53 + SPP + PANet), then one of the postprocesses
+of `build_detector`'s modes, each ending in a CUDA NMS kernel on the
+GPU. `select_serving_mode` and `build_auto_detector` pick a
 mode, bf16 or int8 (ops.quantize), from a resolution, a quantization
 budget and the device type.
 """
@@ -19,8 +20,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from yolov3_tensorflow_tpu_torch.models import yolov4
 from yolov3_tensorflow_tpu_torch.models.decode import predict_boxes
-from yolov3_tensorflow_tpu_torch.models.yolov3 import (channels_last_weights,
+from yolov3_tensorflow_tpu_torch.models.yolov3 import (DETECTION_CONVS,
+                                                       channels_last_weights,
                                                        fold_batch_norm,
                                                        yolov3_forward_folded)
 from yolov3_tensorflow_tpu_torch.ops.fast_postprocess import (
@@ -34,6 +37,12 @@ from yolov3_tensorflow_tpu_torch.ops.quantize import (
 from yolov3_tensorflow_tpu_torch.utils.profiling import annotate
 
 _MODES = ("packed", "split", "exact", "prefilter", "stem8")
+# per architecture: its packed forward, its detection convs (strides 32,
+# 16, 8) and each scale's scale_x_y
+_ARCHS = {"yolov3": (yolov3_forward_packed, DETECTION_CONVS,
+                     (1.0, 1.0, 1.0)),
+          "yolov4": (yolov4.yolov4_forward_packed, yolov4.DETECTION_CONVS,
+                     yolov4.SCALE_X_Y)}
 
 
 def postprocess(feature_maps, anchors: np.ndarray, num_classes: int,
@@ -58,16 +67,20 @@ class PackedDetector(nn.Module):
     """images [B, H, W, 3] float in [0, 1] (NHWC, any device) -> detections
     dict of [B, C*max_out, ...] on the detector's device. Runs under
     torch.inference_mode(). Spans (`utils.profiling.annotate`):
-    "packed.forward" (the copy in and the packed forward) and
-    "packed.postprocess" (`postprocess_packed`: score, top-k, gather and
-    decode, K1, compaction)."""
+    "packed.forward" (the copy in and the packed forward, `packed_forward`:
+    `yolov3_forward_packed`, or `models.yolov4.yolov4_forward_packed`
+    with its own spans inside) and "packed.postprocess"
+    (`postprocess_packed`: score, top-k, gather and decode, K1,
+    compaction)."""
 
     def __init__(self, packed: dict, tables: torch.Tensor, num_classes: int,
                  img_size: Tuple[int, int], *, max_out: int, box_topk: int,
                  score_thresh: float, iou_thresh: float,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype,
+                 packed_forward=yolov3_forward_packed):
         super().__init__()
         self.packed = packed
+        self.packed_forward = packed_forward
         self.register_buffer("tables", tables)
         self.num_classes = num_classes
         self.img_size = (int(img_size[0]), int(img_size[1]))
@@ -84,8 +97,8 @@ class PackedDetector(nn.Module):
                              f"images {tuple(images.shape)}")
         with annotate("packed.forward"):
             images = images.to(self.tables.device, non_blocking=True)
-            outs = yolov3_forward_packed(self.packed, images,
-                                         compute_dtype=self.compute_dtype)
+            outs = self.packed_forward(self.packed, images,
+                                       compute_dtype=self.compute_dtype)
         with annotate("packed.postprocess"):
             return postprocess_packed(
                 outs, None, self.num_classes, self.img_size,
@@ -192,11 +205,18 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                    approx_topk: bool = False,
                    calibration_images=None,
                    stem_int8_upto: int = 12,
-                   activation_scales=None) -> nn.Module:
+                   activation_scales=None, arch: str = "yolov3"
+                   ) -> nn.Module:
     """Build the end-to-end detector on `device`.
 
     variables: this package's tree (see models.convert.from_jax_variables,
-    models.yolov3.init_yolov3 or utils.weights.load_darknet_weights).
+    models.yolov3.init_yolov3 or utils.weights.load_darknet_weights; for
+    arch="yolov4", models.yolov4.init_yolov4). arch "yolov3" (the default)
+    serves YOLOv3 in every mode; "yolov4" serves YOLOv4 (CSPDarknet-53,
+    SPP, PANet, `models.yolov4`) in mode "packed" only, with `anchors` its
+    own (the cfg's nine, masks 0-2, 3-5, 6-8 for strides 8, 16, 32) and
+    each scale's scale_x_y in the decode.
+    Any other mode or arch raises ValueError.
     Default thresholds are the demo scripts' (max 200 boxes per class,
     score 0.3, iou 0.45). Modes:
 
@@ -241,8 +261,16 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                 "build_detector_int8 or build_auto_detector"
                 if mode == "int8" else "")
         raise ValueError(f"unknown detector mode {mode!r}{hint}")
+    if arch not in _ARCHS:
+        raise ValueError(f"unknown architecture {arch!r}: one of "
+                         f"{sorted(_ARCHS)}")
+    if arch != "yolov3" and mode != "packed":
+        raise ValueError(f"arch={arch!r} is served in mode 'packed' only, "
+                         f"got mode {mode!r}")
+    packed_forward, det_convs, scale_x_y = _ARCHS[arch]
     variables = variables_on(variables, device)
-    tables = decode_tables(img_size, anchors, device=device)
+    tables = decode_tables(img_size, anchors, device=device,
+                           scale_x_y=scale_x_y)
     if mode == "stem8":
         if activation_scales is None:
             if calibration_images is None:
@@ -258,7 +286,7 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
             iou_thresh=iou_thresh).eval()
     folded = fold_batch_norm(variables, dtype=compute_dtype)
     if mode == "packed":
-        folded = pack_serving_head(folded, num_classes)
+        folded = pack_serving_head(folded, num_classes, names=det_convs)
     elif mode == "split":
         folded = split_serving_head(folded, num_classes)
     channels_last_weights(folded)
@@ -273,7 +301,8 @@ def build_detector(variables, anchors: np.ndarray, num_classes: int,
                               max_out=max_out, box_topk=box_topk,
                               score_thresh=score_thresh,
                               iou_thresh=iou_thresh,
-                              compute_dtype=compute_dtype).eval()
+                              compute_dtype=compute_dtype,
+                              packed_forward=packed_forward).eval()
     return FoldedDetector(folded, tables, anchors, num_classes, img_size,
                           mode=mode, max_out=max_out, pre_topk=pre_topk,
                           box_topk=box_topk, score_thresh=score_thresh,
