@@ -308,11 +308,20 @@ Phases, in order; any failure exits non-zero before the last line:
    main path: build_detector(arch="yolov4", mode="packed") on a seeded
    init_yolov4 tree (gamma 1, beta 0: about half of every activation's
    inputs below 0) at the YOLOv4 cell's batch 64, 608^2, bf16. The
-   detector's second request launches the Mish modes 72 times
-   (`conv_epilogue.launches_by_mode`, zeroed before it); the 72 Mish
-   calls of one packed forward, caught, each bit-equal to its plain
-   version on copies of the call's operands; each call's kernel and plain
-   chain on the device alone, summed over the 72, beside the byte bound.
+   detector's first request builds the bf16 Mish table, once (the record
+   conv_epilogue_mish_table: its builds, one build timed beside the byte
+   bound of its 128 KB): equal to mish_activation on the card at all
+   65,536 codes. The second request launches the Mish modes 72 times
+   (`conv_epilogue.launches_by_mode`, zeroed before it), all 72 on the
+   table route (`conv_epilogue.mish_launches_by_route`, as the library
+   reports it); the 72 Mish calls of one packed forward, caught, each
+   bit-equal to its plain version on copies of the call's operands; each
+   call's kernel and plain chain on the device alone, summed over the 72,
+   beside the byte bound. The library's machine code (cuobjdump -sass):
+   the 18 kernels off the table route equal to the build before the
+   table (E1_BEFORE_TABLE, where nvcc is the one it was recorded with),
+   and no MUFU for mish() in the bf16 Mish instances (none but the
+   integer divisions' MUFU.RCP), some in the fp32 ones.
 23. prints the kernel record and the device record as JSON; the last line
    is {"ok": true, "device": {...}}. Each kernel's record carries its bound
    (scripts/roofline.py: the published H100 SXM peaks, from this run's
@@ -324,8 +333,10 @@ Phases, in order; any failure exits non-zero before the last line:
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -360,6 +371,10 @@ KERNELS = {
     # E1's Mish instances (conv_epilogue_mish_kernel), a record of their own
     "conv_epilogue_mish": ("yolov3_tensorflow_tpu_torch/csrc/conv_epilogue.cu",
                            "none: the JAX package has no YOLOv4"),
+    # the table that E1's bf16 Mish instances read (mish_table_build)
+    "conv_epilogue_mish_table": (
+        "yolov3_tensorflow_tpu_torch/csrc/conv_epilogue.cu",
+        "none: the JAX package has no YOLOv4"),
 }
 # the libraries to build: each record's source once
 BUILDS = tuple(dict.fromkeys(Path(src).stem for src, _ in KERNELS.values()))
@@ -372,6 +387,52 @@ K3_RTOL = 1e-4                         # max|kernel - plain| / max|plain|
 K3_RATIO = (1.7, 2.3)                  # time(2 x reps) / time(reps)
 K3_RECORD = "ctrl 512x512"             # K3's shape in the kernel record
 K4_RECORD = 128                        # K4's width in the kernel record
+# conv_epilogue.cu's kernels off the bf16 Mish table route, as built before
+# the table existed (commit ab4df56) by nvcc E1_BEFORE_TABLE_NVCC with
+# kernels.NVCC_FLAGS on an H100: the first 16 hex digits of the sha256 of
+# each kernel's kernels.sass_functions lines, joined by newlines, by its
+# name without the per-build tag of its anonymous namespace (E1_ANON).
+# Phase 22 holds this build to them; a change to those kernels updates them.
+E1_BEFORE_TABLE_NVCC = "V12.9.86"
+E1_BEFORE_TABLE = {
+    "conv_epilogue_kernelI13__nv_bfloat16Li0ELb0EEEvNS_4ArgsE":
+        "feffa3e83dc11294",
+    "conv_epilogue_kernelI13__nv_bfloat16Li0ELb1EEEvNS_4ArgsE":
+        "bc93c9ca2e963365",
+    "conv_epilogue_kernelI13__nv_bfloat16Li1ELb0EEEvNS_4ArgsE":
+        "ffb4fb4545b783bb",
+    "conv_epilogue_kernelI13__nv_bfloat16Li1ELb1EEEvNS_4ArgsE":
+        "97cd8a3d0d5846c7",
+    "conv_epilogue_kernelI13__nv_bfloat16Li2ELb0EEEvNS_4ArgsE":
+        "303466c20d01ab18",
+    "conv_epilogue_kernelI13__nv_bfloat16Li2ELb1EEEvNS_4ArgsE":
+        "f55d3d96c911c26a",
+    "conv_epilogue_kernelI13__nv_bfloat16Li3ELb1EEEvNS_4ArgsE":
+        "6b03dc84b4d61e11",
+    "conv_epilogue_kernelIfLi0ELb0EEEvNS_4ArgsE":
+        "a32e5cc34caf8272",
+    "conv_epilogue_kernelIfLi0ELb1EEEvNS_4ArgsE":
+        "651a8ea0cae9c786",
+    "conv_epilogue_kernelIfLi1ELb0EEEvNS_4ArgsE":
+        "499a84bb51790896",
+    "conv_epilogue_kernelIfLi1ELb1EEEvNS_4ArgsE":
+        "1a1a5cd808f595e4",
+    "conv_epilogue_kernelIfLi2ELb0EEEvNS_4ArgsE":
+        "b4982bef5b8b1061",
+    "conv_epilogue_kernelIfLi2ELb1EEEvNS_4ArgsE":
+        "78cdf269c03211f6",
+    "conv_epilogue_kernelIfLi3ELb1EEEvNS_4ArgsE":
+        "e21bb73f813895a6",
+    "conv_epilogue_mish_kernelIfLi4ELb0EEEvNS_4ArgsE":
+        "ab221f5c478c130f",
+    "conv_epilogue_mish_kernelIfLi4ELb1EEEvNS_4ArgsE":
+        "4c5610e2bcdc228e",
+    "conv_epilogue_mish_kernelIfLi5ELb0EEEvNS_4ArgsE":
+        "1a0ec42234f96c63",
+    "conv_epilogue_mish_kernelIfLi5ELb1EEEvNS_4ArgsE":
+        "07429487bf4e8b9b",
+}
+E1_ANON = re.compile(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+")
 ROOF_BATCH = 128                       # batch of the roofline and profile
 CLI_SRC_HW = (480, 640)                # the entry points' input frames
 CLI_FRAMES = 24                        # frames of the input video
@@ -3889,19 +3950,51 @@ def yolov4_phase(dev: torch.device, card: str, launches: dict,
                         device=dev)
     det(images)                              # the first call builds
     torch.cuda.synchronize()
+    # the table the first bf16 Mish call built, once, against the plain
+    # version on this card at each of its 65,536 codes
+    codes = torch.arange(1 << 16, dtype=torch.int32, device=dev).to(
+        torch.int16).view(torch.bfloat16)
+    table = ce._mish_table(dev)
+    builds = ce._mish_table.cache_info().currsize
+    launches["conv_epilogue_mish_table"] = builds
+    check(builds == 1, f"the Mish table was built {builds} times on one "
+                       f"device, not once")
+    check(torch.equal(table, ce.mish_activation(codes).view(torch.int16)),
+          "the device's Mish table differs from mish_activation")
+    build = ce._launchers().mish_table
+    again = torch.empty_like(table)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(build(again.data_ptr(), stream) == 0, "mish_table_build failed")
+    t_ms = cuda_ms(lambda: build(again.data_ptr(), stream), 20)
+    check(torch.equal(again, table), "mish_table_build's two tables differ")
+    max_err["conv_epilogue_mish_table"] = 0.0
+    kernel_ms["conv_epilogue_mish_table"] = (
+        t_ms, cuda_ms(lambda: ce.mish_activation(codes), 20))
+    bounds["conv_epilogue_mish_table"] = roofline.kernel_bound(
+        0.0, float(table.numel() * table.element_size()), "fp32")
+    library["conv_epilogue_mish_table"] = None
+    print(f"Mish table ({table.numel()} bf16 codes) built {builds} time(s) "
+          f"on the device, equal to mish_activation at every code: "
+          f"{t_ms * 1e3:.2f} us a build, plain version "
+          f"{kernel_ms['conv_epilogue_mish_table'][1] * 1e3:.2f} us [{card}]")
+    del codes, again
     by_mode = ce.conv_epilogue.launches_by_mode
-    for mode in by_mode:
-        by_mode[mode] = 0
+    by_route = ce.conv_epilogue.mish_launches_by_route
+    for counts in (by_mode, by_route):
+        for key in counts:
+            counts[key] = 0
     out = det(images)
     torch.cuda.synchronize()
     n = by_mode["mish"] + by_mode["mish_residual"]
     launches["conv_epilogue_mish"] = n
     print(f"YOLOv4 packed detector at batch {YOLOV4_BATCH}, "
-          f"{YOLOV4_SIZE}^2: epilogue launches by mode {dict(by_mode)}; "
+          f"{YOLOV4_SIZE}^2: epilogue launches by mode {dict(by_mode)}, "
+          f"Mish launches by route {dict(by_route)}; "
           f"{int(out['valid'].sum())} detections")
-    check(n == YOLOV4_MISH_CALLS,
-          f"a YOLOv4 request launched the Mish modes {n} times, not "
-          f"{YOLOV4_MISH_CALLS}")
+    check(n == YOLOV4_MISH_CALLS == by_route["table"]
+          and by_route["chain"] == 0,
+          f"a YOLOv4 request launched the Mish modes {n} times, by route "
+          f"{dict(by_route)}, not {YOLOV4_MISH_CALLS} on the table")
     check(bool(torch.isfinite(out["boxes"]).all()
                and torch.isfinite(out["scores"]).all()),
           "YOLOv4: non-finite detections")
@@ -3949,7 +4042,48 @@ def yolov4_phase(dev: torch.device, card: str, launches: dict,
           f"GB/s), plain chain {p_sum:.4f} ms; bound {bound_sum:.4f} ms "
           f"(bytes at {roofline.H100_PEAKS['hbm'] / 1e9:.0f} GB/s): "
           f"{bound_sum / k_sum * 100:.1f}% [{card}]")
+    epilogue_machine_code()
 
+
+def epilogue_machine_code() -> None:
+    """Phase 22's reading of conv_epilogue.cu's machine code (cuobjdump
+    -sass of this build): the kernels off the Mish table route against
+    E1_BEFORE_TABLE, where the installed nvcc is the one it was recorded
+    with; the MUFU operations of each Mish instance."""
+    from yolov3_tensorflow_tpu_torch.utils import kernels
+    code = {E1_ANON.sub("", name): lines for name, lines in
+            kernels.sass_functions(kernels.build_kernel(
+                "conv_epilogue")).items()}
+    nvcc = kernels.nvcc_version()
+    if nvcc == E1_BEFORE_TABLE_NVCC:
+        digest = {name: hashlib.sha256("\n".join(code.get(name, ())).encode()
+                                       ).hexdigest()[:16]
+                  for name in E1_BEFORE_TABLE}
+        changed = [name for name in E1_BEFORE_TABLE
+                   if digest[name] != E1_BEFORE_TABLE[name]]
+        check(not changed, f"conv_epilogue's machine code changed off the "
+                           f"Mish table route: {changed}")
+        print(f"conv_epilogue machine code: the {len(E1_BEFORE_TABLE)} "
+              f"kernels off the Mish table route equal to the build before "
+              f"the table, instruction for instruction ({nvcc})")
+    else:
+        print(f"conv_epilogue machine code off the Mish table route: not "
+              f"compared (recorded with nvcc {E1_BEFORE_TABLE_NVCC}, this "
+              f"is {nvcc})")
+    mish = sorted(name for name in code
+                  if name.startswith("conv_epilogue_mish_kernel"))
+    check(len(mish) == 8, f"conv_epilogue holds {len(mish)} Mish "
+                          f"instances, not 8")
+    for name in mish:
+        # MUFU.RCP* serve the integer divisions of every instance's walk;
+        # the others (EX2, LG2, ...) mish()'s expf, log1pf and tanhf
+        mufu = [line for line in code[name]
+                if kernels.sass_opcode(line) == "MUFU"]
+        math = sum(".RCP" not in line for line in mufu)
+        print(f"  {name}: MUFU {len(mufu)}, of them for mish() {math}; "
+              f"{len(code[name])} lines of SASS")
+        check(math == 0 if "bfloat16" in name else math > 0,
+              f"{name}: {math} MUFU for mish()")
 
 def main() -> int:
     # ---- 1. checks -------------------------------------------------------

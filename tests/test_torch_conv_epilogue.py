@@ -4,7 +4,11 @@ On the CPU: the plain version of each of the kernel's four modes is the
 chain the folded layers ran before it, bit for bit, in bf16 and fp32, over
 values that include negatives, +-0, subnormals, large magnitudes and NaN;
 a numpy model of the kernel's arithmetic (float sums and products, rounded
-to the dtype where the chain stores) gives the same bits; the folded and
+to the dtype where the chain stores) gives the same bits; a model of the
+bf16 Mish table route (a table of the chain's outputs at every bf16 code,
+read at the code of rnd(y + rnd(b))) gives the chain's bits at every code,
+and a YOLOv4 forward's 72 Mish calls take the table in bf16 and the chain
+in fp32; the folded and
 packed forwards, which now add each residual block's shortcut in its last
 conv's epilogue, equal the walk that adds it after the block; the module
 imports and runs on the CPU without nvcc; the kernel is built beside K1.
@@ -12,7 +16,9 @@ imports and runs on the CPU without nvcc; the kernel is built beside K1.
 The `cuda` tests hold the kernel to the plain version on the card: at every
 epilogue of the 416^2 forward (the space-to-depth stem's strided window
 included), on the special values, over a whole packed forward, with its
-launch count. This file imports no JAX, so the card runs it as it is
+launch count, and the device's Mish table against `mish_activation` on the
+card at every code, with the launches by route. This file imports no JAX,
+so the card runs it as it is
 (`python -m pytest --noconftest -m cuda tests/test_torch_conv_epilogue.py`).
 """
 
@@ -309,6 +315,133 @@ def test_slope_is_rounded_to_the_dtype():
 
 
 # ---------------------------------------------------------------------------
+# The bf16 Mish table route, modelled on the CPU
+# ---------------------------------------------------------------------------
+
+MISH_MODES = ("mish", "mish_residual")
+
+
+def _every_bf16_code(device=None) -> torch.Tensor:
+    """The 65,536 bf16 values, the one with code k at k."""
+    return torch.arange(1 << 16, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16)
+
+
+def _table_model(y, bias, shortcut):
+    """The kernel's bf16 Mish table route (csrc/conv_epilogue.cu:
+    mish_by_table): the table holds rnd(mish(x)) at each bf16 code (here
+    from mish_activation; on the card the kernel fills it with its own
+    mish()); r = rnd(y + rnd(b)) in float, its 16 bits the index; the
+    shortcut's add after, rounded."""
+    table = ce.mish_activation(_every_bf16_code()).view(torch.int16)
+    r = (y.float() + bias.to(torch.bfloat16).float().view(1, -1, 1, 1)).to(
+        torch.bfloat16)
+    code = r.view(torch.int16).long() & 0xffff
+    out = table[code].view(torch.bfloat16)
+    if shortcut is not None:
+        out = (out.float() + shortcut.float()).to(torch.bfloat16)
+    return out, code
+
+
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("mode", MISH_MODES)
+def test_table_route_model_is_the_chain_at_every_code(mode, window):
+    """y holds each of the 65,536 bf16 codes once: with a bias of -0
+    (x + -0 is x, for -0 too) every code reaches the table as itself,
+    +-0, subnormals, +-inf, the NaNs and the values around softplus's
+    threshold of 20 among them; then under a seeded bias (rounded sums).
+    The model gives the chain's bits, dense and on a strided window (NaN
+    compared as NaN: the CPU's NaN payloads are its own)."""
+    shape = (2, 32, 32, 32)
+    y = _every_bf16_code().view(2, 32, 32, 32).permute(0, 3, 1, 2)
+    if window:
+        big = torch.zeros((2, 33, 34, 32), dtype=torch.bfloat16)
+        big[:, 1:, 2:] = y.permute(0, 2, 3, 1)
+        y = big.permute(0, 3, 1, 2)[:, :, 1:, 2:]
+        assert not y.is_contiguous(memory_format=torch.channels_last)
+    assert y.shape == (2, 32, 32, 32) and y.stride(1) == 1
+    rng = np.random.default_rng(6)
+    shortcut = None if mode == "mish" else torch.from_numpy(
+        _values(rng, shape)).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+    seeded = torch.from_numpy(_values(rng, (32,)))
+    for i, bias in enumerate((torch.full((32,), -0.0), seeded,
+                              seeded.to(torch.bfloat16))):
+        got, code = _table_model(y, bias, shortcut)
+        want = ce.conv_epilogue_reference(y, bias, shortcut=shortcut,
+                                          mish=True)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+        if i > 0:
+            continue
+        # every code went through the table as itself (a NaN as a NaN)
+        y_nan = torch.isnan(y)
+        assert torch.equal(code[~y_nan], (y.view(torch.int16).long()
+                                          & 0xffff)[~y_nan])
+        x = code.to(torch.int16).view(torch.bfloat16).float()
+        assert torch.isnan(x[y_nan]).all()
+        for hit in (x == 0, torch.signbit(x) & (x == 0),
+                    (x != 0) & (x.abs() < 1.17549435e-38), x == float("inf"),
+                    x == -float("inf"), torch.isnan(x), x == 20.0,
+                    (x > 19.5) & (x < 20.5)):
+            assert hit.any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_yolov4_mish_calls_take_the_route_of_their_dtype(dtype,
+                                                         monkeypatch):
+    """A YOLOv4 packed forward (32^2, on the CPU) makes 72 Mish epilogue
+    calls, each with y of the compute dtype, whose route the library
+    reports (on the card: bf16 the table, fp32 the chain,
+    test_cuda_yolov4_mish_launches_by_route). The CPU runs the plain chain
+    and counts no launch on either route."""
+    from yolov3_tensorflow_tpu_torch.models import yolov4
+    dt = DTYPES[dtype]
+    dtypes = []
+
+    def spy(y, bias, *, mish=False, **kw):
+        if mish:
+            dtypes.append(y.dtype)
+        return ce.conv_epilogue(y, bias, mish=mish, **kw)
+    monkeypatch.setattr(layers, "conv_epilogue", spy)
+    gen = torch.Generator().manual_seed(2)
+    tree = fp.pack_serving_head(fold_batch_norm(yolov4.init_yolov4(
+        gen, 80, device=torch.device("cpu")), dtype=dt), 80, out_dtype=dt,
+        names=yolov4.DETECTION_CONVS)
+    before = dict(ce.conv_epilogue.mish_launches_by_route)
+    with torch.inference_mode():
+        yolov4.yolov4_forward_packed(tree, torch.rand((1, 32, 32, 3),
+                                                      generator=gen),
+                                     compute_dtype=dt, out_dtype=dt)
+    assert dtypes == [dt] * 72
+    assert ce.conv_epilogue.mish_launches_by_route == before
+    assert set(before) == set(ce.MISH_ROUTES)
+
+
+@pytest.mark.parametrize("reads", [(0, 1), (0, 0), (1, 1)])
+def test_mish_route_is_what_the_library_reports(reads, monkeypatch):
+    """The wrapper takes each dtype's Mish route (and so the route it
+    counts a launch on) from the library's conv_epilogue_mish_reads_table,
+    asked once, and not from a rule of its own: here a stand-in library
+    (the shipped one reads (0, 1): fp32 the chain, bf16 the table)."""
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                if name == "conv_epilogue_mish_reads_table":
+                    asked.append(args)
+                    return reads[args[0]]
+                return 0
+            return entry
+    asked = []
+    monkeypatch.setattr(kernels, "load_kernel", lambda *a, **kw: Library())
+    lib = ce._launchers.__wrapped__()
+    assert lib.mish_route == tuple(ce.MISH_ROUTES[0 if r else 1]
+                                   for r in reads)
+    assert sorted(asked) == [(0,), (1,)]
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -437,9 +570,6 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(card):
 # The Mish modes (YOLOv4's backbone) on the card
 # ---------------------------------------------------------------------------
 
-MISH_MODES = ("mish", "mish_residual")
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MISH_MODES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -500,3 +630,35 @@ def test_cuda_yolov4_forward_every_mish_epilogue_bit_equal(card,
     assert {k: after[k] - before[k] for k in after} == {
         "bias": 3, "leaky": 35, "residual": 0, "junction": 0, "mish": 49,
         "mish_residual": 23}
+
+
+@pytest.mark.cuda
+def test_cuda_mish_table_is_mish_activation_at_every_code(card):
+    """The table the kernel built on the card, against mish_activation
+    (PyTorch's softplus and tanh kernels) on the card, bit for bit at all
+    65,536 codes."""
+    codes = _every_bf16_code(card)
+    want = ce.mish_activation(codes).view(torch.int16)
+    assert torch.equal(ce._mish_table(codes.device), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_yolov4_mish_launches_by_route(card, dtype):
+    """A YOLOv4 packed forward's 72 Mish launches: all on the table route
+    in bf16, all on the chain in fp32."""
+    from yolov3_tensorflow_tpu_torch.models import yolov4
+    dt = DTYPES[dtype]
+    gen = torch.Generator(card).manual_seed(10)
+    tree = fp.pack_serving_head(fold_batch_norm(yolov4.init_yolov4(
+        gen, 80, device=card), dtype=dt), 80, out_dtype=dt,
+        names=yolov4.DETECTION_CONVS)
+    images = torch.rand((2, 128, 128, 3), device=card, generator=gen)
+    before = dict(ce.conv_epilogue.mish_launches_by_route)
+    with torch.inference_mode():
+        yolov4.yolov4_forward_packed(tree, images, compute_dtype=dt,
+                                     out_dtype=dt)
+    after = ce.conv_epilogue.mish_launches_by_route
+    assert {k: after[k] - before[k] for k in after} == (
+        {"table": 72, "chain": 0} if dt == torch.bfloat16
+        else {"table": 0, "chain": 72})

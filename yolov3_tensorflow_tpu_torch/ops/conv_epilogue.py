@@ -13,13 +13,18 @@ CUDA tensors go to the kernel, CPU tensors to `conv_epilogue_reference`,
 the chain itself; anything else raises. There is no fallback from one to
 the other. Nothing is built at import: the kernel is compiled at its first
 launch, together with K1 (`nms_cuda.SERVING_KERNELS`).
+
+Mish in bf16 takes the kernel's table route (the library says which
+route each dtype takes): the first such call on a device builds there,
+once, the table of the chain's 65,536 bf16 outputs that the kernel then
+reads (`_mish_table`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +33,7 @@ ALPHA = 0.1                  # the LeakyReLU's slope, before rounding
 BIAS, LEAKY, RESIDUAL, JUNCTION, MISH, MISH_RESIDUAL = range(6)  # modes
 MODE_NAMES = ("bias", "leaky", "residual", "junction", "mish",
               "mish_residual")
+MISH_ROUTES = ("table", "chain")
 _TYPES = (torch.float32, torch.bfloat16)        # y's, and the bias's
 
 
@@ -135,7 +141,10 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, *,
     it) into a new dense tensor, and returned; it carries no gradient.
     CPU tensors go to `conv_epilogue_reference`. Each kernel launch adds
     one to `conv_epilogue.launches` and one to its mode's count in
-    `conv_epilogue.launches_by_mode` (keyed by MODE_NAMES)."""
+    `conv_epilogue.launches_by_mode` (keyed by MODE_NAMES); a Mish launch
+    also adds one to its route's in `conv_epilogue.mish_launches_by_route`
+    (keyed by MISH_ROUTES, as the library reports the route of y's
+    dtype)."""
     if y.device.type == "cpu":
         return conv_epilogue_reference(y, bias, leaky=leaky,
                                        shortcut=shortcut, low=low, mish=mish)
@@ -175,44 +184,85 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, *,
     bias_bf16 = int(bias.dtype == torch.bfloat16)
     slope_ = slope(ALPHA, torch.float32 if mode == JUNCTION else y.dtype)
     e_ptr = None if extra is None else extra.data_ptr()
-    dense, strided = _launchers()
+    lib = _launchers()
+    route = lib.mish_route[bf16] if mode in (MISH, MISH_RESIDUAL) else None
+    table = _mish_table(y.device).data_ptr() if route == "table" else None
     if mode != JUNCTION and dense_y and _dense(extra):
-        err = dense(out.data_ptr(), y.data_ptr(), e_ptr, bias.data_ptr(),
-                    bf16, bias_bf16, mode, n * h * w, c, slope_, stream)
+        err = lib.dense(out.data_ptr(), y.data_ptr(), e_ptr,
+                        bias.data_ptr(), table, bf16, bias_bf16, mode,
+                        n * h * w, c, slope_, stream)
     else:
         se = (0, 0, 0) if extra is None else (
             extra.stride(0), extra.stride(2), extra.stride(3))
-        err = strided(out.data_ptr(), y.data_ptr(), e_ptr, bias.data_ptr(),
-                      bf16, bias_bf16, mode, n, h, w, c, out.stride(0),
-                      out.stride(2), out.stride(3), y.stride(0), y.stride(2),
-                      y.stride(3), *se, slope_, stream)
+        err = lib.strided(out.data_ptr(), y.data_ptr(), e_ptr,
+                          bias.data_ptr(), table, bf16, bias_bf16, mode, n,
+                          h, w, c, out.stride(0), out.stride(2),
+                          out.stride(3), y.stride(0), y.stride(2),
+                          y.stride(3), *se, slope_, stream)
     if err != 0:
         raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error "
                            f"{err}")
     conv_epilogue.launches += 1
     conv_epilogue.launches_by_mode[MODE_NAMES[mode]] += 1
+    if route is not None:
+        conv_epilogue.mish_launches_by_route[route] += 1
     return out
 
 
 conv_epilogue.launches = 0
 conv_epilogue.launches_by_mode = dict.fromkeys(MODE_NAMES, 0)
+conv_epilogue.mish_launches_by_route = dict.fromkeys(MISH_ROUTES, 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _launchers():
-    """Build (at first use, with K1) and bind conv_epilogue.cu's two C
-    entry points once, with their argument types: (dense, strided).
-    Pointers and the stream are c_void_p so ctypes does not cut them to
-    32 bits."""
+def _mish_table(device: torch.device) -> torch.Tensor:
+    """The table route's table on `device`: 65,536 bf16 codes, entry k
+    rnd(mish(x)) for the x whose code is k, filled by the kernel's own
+    mish() on the device (the CPU's log1p and tanh differ from CUDA's in
+    the last ulp). Built at the first bf16 Mish call on the device, and
+    waited for, so that a call on another stream finds it whole."""
+    table = torch.empty(1 << 16, dtype=torch.int16, device=device)
+    stream = torch.cuda.current_stream(device)
+    with torch.cuda.device(device):
+        err = _launchers().mish_table(table.data_ptr(), stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_epilogue's Mish table failed to build: "
+                           f"CUDA error {err}")
+    stream.synchronize()
+    return table
+
+
+class _Library(NamedTuple):
+    """conv_epilogue.cu's C entry points, bound, and what it reports."""
+    dense: Callable[..., int]
+    strided: Callable[..., int]
+    mish_table: Callable[..., int]
+    mish_route: Tuple[str, str]     # the Mish route of fp32 and of bf16
+
+
+@functools.lru_cache(maxsize=None)
+def _launchers() -> _Library:
+    """Build (at first use, with K1) and bind conv_epilogue.cu's C entry
+    points once, with their argument types, and ask it once which route
+    (MISH_ROUTES) the Mish instances of each dtype take. Pointers and the
+    stream are c_void_p so ctypes does not cut them to 32 bits."""
     from yolov3_tensorflow_tpu_torch.ops.nms_cuda import SERVING_KERNELS
     from yolov3_tensorflow_tpu_torch.utils.kernels import load_kernel
     lib = load_kernel("conv_epilogue", SERVING_KERNELS)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dense = lib.conv_epilogue_dense
-    dense.argtypes = [p, p, p, p, i, i, i, ll, i, ctypes.c_float, p]
+    dense.argtypes = [p, p, p, p, p, i, i, i, ll, i, ctypes.c_float, p]
     dense.restype = i
     strided = lib.conv_epilogue_strided
-    strided.argtypes = [p, p, p, p, i, i, i, i, i, i, i] + [ll] * 9 + [
+    strided.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i] + [ll] * 9 + [
         ctypes.c_float, p]
     strided.restype = i
-    return dense, strided
+    mish_table = lib.conv_epilogue_mish_table
+    mish_table.argtypes = [p, p]
+    mish_table.restype = i
+    reads_table = lib.conv_epilogue_mish_reads_table
+    reads_table.argtypes = [i]
+    reads_table.restype = i
+    route = tuple(MISH_ROUTES[0 if reads_table(bf16) else 1]
+                  for bf16 in (0, 1))
+    return _Library(dense, strided, mish_table, route)

@@ -26,7 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -84,6 +84,15 @@ def build_kernels(*names: str, defines: Tuple[str, ...] = ()
     return outs
 
 
+def nvcc_version() -> str:
+    """The installed nvcc's version (V12.8.93 of `nvcc --version`'s
+    "release 12.8, V12.8.93")."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    release = out.rsplit("release", 1)[-1].splitlines()[0]
+    return release.split(",")[-1].strip()
+
+
 def _cuobjdump() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     found = shutil.which("cuobjdump")
@@ -95,19 +104,41 @@ def _cuobjdump() -> str:
                        "(on PATH or under CUDA_HOME)")
 
 
+def _sass(lib: Path) -> str:
+    return subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_opcode(line: str) -> Optional[str]:
+    """The opcode of a line of `cuobjdump -sass` that holds an instruction,
+    without its predicate and modifiers (HGMMA of `@P0 HGMMA.64x128x16 ...`);
+    None for any other line."""
+    words = [w for w in line.split("*/", 1)[-1].split()
+             if not w.startswith("@")]              # drop a predicate
+    return words[0].split(".")[0] if "*/" in line and words else None
+
+
 def sass_counts(lib: Path, opcodes=("HGMMA", "HMMA")) -> Dict[str, int]:
     """How many instructions of each opcode the library's machine code
     (`cuobjdump -sass`) holds: HGMMA is Hopper's warpgroup product (wgmma),
     HMMA the per-warp one (mma.sync)."""
-    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    heads = []
-    for line in sass.splitlines():
-        words = [w for w in line.split("*/", 1)[-1].split()
-                 if not w.startswith("@")]          # drop a predicate
-        if "*/" in line and words:
-            heads.append(words[0].split(".")[0])
+    heads = [sass_opcode(line) for line in _sass(lib).splitlines()]
     return {op: heads.count(op) for op in opcodes}
+
+
+def sass_functions(lib: Path) -> Dict[str, List[str]]:
+    """Each kernel's machine code in the library (`cuobjdump -sass`), by
+    the name cuobjdump gives it: its lines in order (addresses,
+    instructions and their encodings) with the spaces squeezed, so that
+    two builds of one kernel compare equal where their code is."""
+    out: Dict[str, List[str]] = {}
+    code = None
+    for line in _sass(lib).splitlines():
+        if "Function :" in line:
+            code = out.setdefault(line.split("Function :", 1)[1].strip(), [])
+        elif code is not None and "*/" in line:
+            code.append(" ".join(line.split()))
+    return out
 
 
 def build_kernel(name: str, defines: Tuple[str, ...] = ()) -> Path:
